@@ -1,0 +1,24 @@
+"""cleisthenes-tpu-torch: the PyTorch/CUDA port of cleisthenes_tpu.
+
+HoneyBadgerBFT's batched crypto plane for an NVIDIA Hopper GPU.  The
+JAX package ``cleisthenes_tpu`` stays beside it as the reference; this
+package imports ``torch``, numpy and the standard library only, and
+mirrors the reference's layout (``config``, ``ops/``, ``core/``,
+``protocol/``) so each counterpart is found by name.
+
+This slice runs the lockstep epoch (``protocol.spmd.LockstepCluster``)
+with the RBC data plane — Reed-Solomon encode, Merkle forest, the N^2
+ECHO branch checks and the fused decode/re-encode/root recheck — in
+hand-written CUDA kernels (``csrc/``), and BBA/decryption modexp on the
+host's native Montgomery kernel (the device modexp is slice 2,
+ROADMAP.md).  The defaults put the work on the card
+(``Config.crypto_backend='cuda'``, ``Config.device='cuda'``); on a
+machine without a GPU they raise instead of running on the CPU.
+"""
+
+from cleisthenes_tpu_torch.config import Config
+from cleisthenes_tpu_torch.core.batch import Batch
+
+__version__ = "0.1.0"
+
+__all__ = ["Batch", "Config"]

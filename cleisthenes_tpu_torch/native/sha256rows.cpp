@@ -1,0 +1,188 @@
+// Batched SHA-256 over many short messages (one C call per wave).
+//
+// The protocol's hot host loops hash hundreds of thousands of small
+// fixed-layout transcripts per lockstep epoch (Chaum-Pedersen
+// challenges in ops/tpke.py, Merkle leaf/node digests in
+// ops/merkle.py's host path).  Per-message hashlib calls spend more
+// time in Python call overhead than in compression; this kernel takes
+// the whole wave as one padded row-matrix and returns all digests in
+// a single crossing.  Implemented from FIPS 180-4 (same spec as
+// ops/sha256_xla.py, which is the device-side twin).
+//
+// Layout: msgs is (m, stride) row-major uint8, row i holds lens[i]
+// message bytes (rest ignored); out is (m, 32).
+
+#include <cstdint>
+#include <cstring>
+
+#include <dlfcn.h>
+
+#include <initializer_list>
+
+namespace {
+
+// OpenSSL's SHA256 one-shot (hardware SHA-NI where the CPU has it,
+// ~2x this file's portable loop).  Resolved at first use via dlopen
+// so the build needs no -dev headers; the portable path below is the
+// always-available fallback and the selftest cross-checks them.
+typedef unsigned char* (*openssl_sha256_fn)(const unsigned char*,
+                                            size_t, unsigned char*);
+
+openssl_sha256_fn resolve_openssl() {
+    static openssl_sha256_fn fn = nullptr;
+    static bool tried = false;
+    if (!tried) {
+        tried = true;
+        for (const char* name :
+             {"libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so"}) {
+            if (void* h = dlopen(name, RTLD_LAZY | RTLD_GLOBAL)) {
+                fn = reinterpret_cast<openssl_sha256_fn>(
+                    dlsym(h, "SHA256"));
+                if (fn) break;
+            }
+        }
+    }
+    return fn;
+}
+
+inline uint32_t rotr(uint32_t x, int n) {
+    return (x >> n) | (x << (32 - n));
+}
+
+const uint32_t K[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
+    0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
+    0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7,
+    0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+    0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152,
+    0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
+    0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+    0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819,
+    0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116, 0x1e376c08,
+    0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f,
+    0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2,
+};
+
+void compress(uint32_t state[8], const uint8_t block[64]) {
+    uint32_t w[64];
+    for (int t = 0; t < 16; t++) {
+        w[t] = (uint32_t(block[4 * t]) << 24) |
+               (uint32_t(block[4 * t + 1]) << 16) |
+               (uint32_t(block[4 * t + 2]) << 8) |
+               uint32_t(block[4 * t + 3]);
+    }
+    for (int t = 16; t < 64; t++) {
+        uint32_t s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^
+                      (w[t - 15] >> 3);
+        uint32_t s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^
+                      (w[t - 2] >> 10);
+        w[t] = w[t - 16] + s0 + w[t - 7] + s1;
+    }
+    uint32_t a = state[0], b = state[1], c = state[2], d = state[3];
+    uint32_t e = state[4], f = state[5], g = state[6], h = state[7];
+    for (int t = 0; t < 64; t++) {
+        uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+        uint32_t ch = (e & f) ^ (~e & g);
+        uint32_t t1 = h + S1 + ch + K[t] + w[t];
+        uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+        uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+        uint32_t t2 = S0 + maj;
+        h = g; g = f; f = e; e = d + t1;
+        d = c; c = b; b = a; a = t1 + t2;
+    }
+    state[0] += a; state[1] += b; state[2] += c; state[3] += d;
+    state[4] += e; state[5] += f; state[6] += g; state[7] += h;
+}
+
+void sha256_one(const uint8_t* msg, int64_t len, uint8_t out[32]) {
+    uint32_t st[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+                      0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+    int64_t off = 0;
+    for (; off + 64 <= len; off += 64) compress(st, msg + off);
+    uint8_t tail[128];
+    int64_t rem = len - off;
+    std::memcpy(tail, msg + off, rem);
+    tail[rem] = 0x80;
+    int64_t pad = (rem + 1 <= 56) ? 64 : 128;
+    std::memset(tail + rem + 1, 0, pad - rem - 1 - 8);
+    uint64_t bits = uint64_t(len) * 8;
+    for (int i = 0; i < 8; i++)
+        tail[pad - 1 - i] = uint8_t(bits >> (8 * i));
+    compress(st, tail);
+    if (pad == 128) compress(st, tail + 64);
+    for (int i = 0; i < 8; i++) {
+        out[4 * i] = uint8_t(st[i] >> 24);
+        out[4 * i + 1] = uint8_t(st[i] >> 16);
+        out[4 * i + 2] = uint8_t(st[i] >> 8);
+        out[4 * i + 3] = uint8_t(st[i]);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// msgs: (m, stride) row-major; lens: per-row byte counts (lens[i] <=
+// stride); out: (m, 32).
+void sha256_rows(const uint8_t* msgs, int64_t m, int64_t stride,
+                 const int32_t* lens, uint8_t* out) {
+    if (openssl_sha256_fn fn = resolve_openssl()) {
+        for (int64_t i = 0; i < m; i++)
+            fn(msgs + i * stride, size_t(lens[i]), out + i * 32);
+        return;
+    }
+    for (int64_t i = 0; i < m; i++)
+        sha256_one(msgs + i * stride, lens[i], out + i * 32);
+}
+
+// Equal-length fast path (no lens array needed).
+void sha256_rows_fixed(const uint8_t* msgs, int64_t m, int64_t len,
+                       int64_t stride, uint8_t* out) {
+    if (openssl_sha256_fn fn = resolve_openssl()) {
+        for (int64_t i = 0; i < m; i++)
+            fn(msgs + i * stride, size_t(len), out + i * 32);
+        return;
+    }
+    for (int64_t i = 0; i < m; i++)
+        sha256_one(msgs + i * stride, len, out + i * 32);
+}
+
+int sha256_selftest() {
+    // FIPS 180-4 vectors: "abc" and the empty string
+    const uint8_t abc[3] = {'a', 'b', 'c'};
+    const uint8_t want_abc[32] = {
+        0xba, 0x78, 0x16, 0xbf, 0x8f, 0x01, 0xcf, 0xea, 0x41, 0x41,
+        0x40, 0xde, 0x5d, 0xae, 0x22, 0x23, 0xb0, 0x03, 0x61, 0xa3,
+        0x96, 0x17, 0x7a, 0x9c, 0xb4, 0x10, 0xff, 0x61, 0xf2, 0x00,
+        0x15, 0xad};
+    const uint8_t want_empty[32] = {
+        0xe3, 0xb0, 0xc4, 0x42, 0x98, 0xfc, 0x1c, 0x14, 0x9a, 0xfb,
+        0xf4, 0xc8, 0x99, 0x6f, 0xb9, 0x24, 0x27, 0xae, 0x41, 0xe4,
+        0x64, 0x9b, 0x93, 0x4c, 0xa4, 0x95, 0x99, 0x1b, 0x78, 0x52,
+        0xb8, 0x55};
+    uint8_t got[32];
+    sha256_one(abc, 3, got);
+    if (std::memcmp(got, want_abc, 32) != 0) return 1;
+    if (openssl_sha256_fn fn = resolve_openssl()) {
+        // the dispatched path must agree with the spec path
+        uint8_t got2[32];
+        fn(abc, 3, got2);
+        if (std::memcmp(got2, want_abc, 32) != 0) return 4;
+    }
+    sha256_one(abc, 0, got);
+    if (std::memcmp(got, want_empty, 32) != 0) return 2;
+    // a >64-byte message exercises the two-block tail path
+    uint8_t longmsg[100];
+    for (int i = 0; i < 100; i++) longmsg[i] = uint8_t(i);
+    sha256_one(longmsg, 100, got);
+    // spot value computed with hashlib:
+    // sha256(bytes(range(100))).hexdigest()[:8] == "bce0aff1"
+    if (!(got[0] == 0xbc && got[1] == 0xe0 && got[2] == 0xaf &&
+          got[3] == 0xf1))
+        return 3;
+    return 0;
+}
+
+}  // extern "C"

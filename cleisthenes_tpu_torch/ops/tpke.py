@@ -1,0 +1,770 @@
+"""Threshold encryption (TPKE) and the generic threshold-DH core.
+
+Implements the four-call API the reference specifies but never codes
+(reference docs/THRESHOLD_ENCRYPTION-EN.md:33-36):
+
+  TPKE.SetUp    -> ThresholdDealer / TpkeKeys (master pubkey + n shares)
+  TPKE.Encrypt  -> Tpke.encrypt (hashed-ElGamal KEM under the master key)
+  TPKE.DecShare -> issue_shares_batch (share + Chaum-Pedersen proof)
+  TPKE.Decrypt  -> Tpke.combine (Lagrange over any f+1 verified shares,
+                   docs/HONEYBADGER-EN.md:40-42)
+
+Scheme: discrete-log threshold ElGamal in the prime-order QR subgroup
+of Z_p* (p a 256-bit safe prime, ops/modmath.py).  The dealer Shamir-
+shares a secret s with threshold t = f+1; decryption shares are
+d_i = c1^{s_i} carrying a Chaum-Pedersen NIZK (Fiat-Shamir over
+SHA-256) that log_g(h_i) = log_{c1}(d_i) — so invalid shares from
+Byzantine nodes are rejected before combination.  Share verification
+is 2 dual-exponentiations per share, batched across all N shares in
+one engine call (the "TPKE-share-verify ops/sec" BASELINE metric).
+
+This is the PyTorch port's copy of ``cleisthenes_tpu/ops/tpke.py``,
+cut to the calls the lockstep epoch (protocol/spmd.py) makes; every
+exponentiation runs on the host engine (ops/modmath.py) in this slice.
+
+Security notes (documented, deliberate): hashed-ElGamal KEM + integrity
+tag in the random-oracle model; a production deployment would swap the
+group seam for a pairing curve and Baek-Zheng CCA2 or a larger prime —
+the API and the batched-verify data flow are unchanged by that swap,
+which is the point of the BatchCrypto seam.  The dealer is trusted
+(standard for HBBFT test/bench deployments; DKG is a protocol-layer
+extension).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+import hmac
+import secrets
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+
+from cleisthenes_tpu_torch.ops.modmath import (
+    DEFAULT_GROUP,
+    G,
+    GroupParams,
+    P,
+    Q,
+    get_engine_degraded,
+    host_pow,
+    host_pow_batch,
+)
+
+
+def _hash_to_int(*parts: bytes) -> int:
+    # one pre-joined update (identical bytes to per-part updates):
+    # this runs once per issued/verified share — millions of times in
+    # a big lockstep epoch — and 2 C calls beat 2*len(parts)
+    h = hashlib.sha256(
+        b"".join(
+            len(p_).to_bytes(4, "big") + p_ for p_ in parts
+        )
+    )
+    return int.from_bytes(h.digest(), "big")
+
+
+def _cp_challenge_batch(
+    contexts: Sequence[bytes],
+    bases: Sequence[int],
+    his: Sequence[int],
+    ds: Sequence[int],
+    a1s: Sequence[int],
+    a2s: Sequence[int],
+    group: "GroupParams",
+) -> List[int]:
+    """All of a wave's CP challenges e = H(cp transcript) mod q in one
+    batched native hash — byte-identical to mapping ``_hash_to_int``
+    over the items (tests assert the equivalence), but the transcript
+    rows are assembled as numpy columns and digested in a single
+    ctypes crossing instead of ~m Python hash calls.
+
+    Rows are grouped by context length (field offsets are constant
+    within a group); a lockstep wave has a handful of context shapes,
+    so this stays a couple of matrix fills."""
+    from cleisthenes_tpu_torch.ops.hashrows import ints_to_be_rows, sha256_rows
+
+    m = len(contexts)
+    if m == 0:
+        return []
+    nb, q = group.nbytes, group.q
+    if m < 64:
+        # matrix assembly costs more than it saves on the live path's
+        # small hub flushes; identical bytes either way
+        return [
+            _hash_to_int(
+                b"cp", contexts[i], _ibytes(bases[i], nb),
+                _ibytes(his[i], nb), _ibytes(ds[i], nb),
+                _ibytes(a1s[i], nb), _ibytes(a2s[i], nb),
+            )
+            % q
+            for i in range(m)
+        ]
+    cols = [
+        ints_to_be_rows(vals, nb)
+        for vals in (bases, his, ds, a1s, a2s)
+    ]
+    head_pfx = (2).to_bytes(4, "big") + b"cp"
+    heads = [
+        head_pfx + len(c).to_bytes(4, "big") + c for c in contexts
+    ]
+    by_hl: Dict[int, List[int]] = {}
+    for i, h in enumerate(heads):
+        by_hl.setdefault(len(h), []).append(i)
+    field_pfx = np.frombuffer(nb.to_bytes(4, "big"), dtype=np.uint8)
+    out: List[int] = [0] * m
+    for hl, idxs in by_hl.items():
+        k = len(idxs)
+        rows = np.empty((k, hl + 5 * (4 + nb)), dtype=np.uint8)
+        rows[:, :hl] = np.frombuffer(
+            b"".join(heads[i] for i in idxs), dtype=np.uint8
+        ).reshape(k, hl)
+        off = hl
+        sel = np.asarray(idxs, dtype=np.intp)
+        for col in cols:
+            rows[:, off : off + 4] = field_pfx
+            rows[:, off + 4 : off + 4 + nb] = col[sel]
+            off += 4 + nb
+        digs = sha256_rows(rows)
+        for row, i in zip(digs, idxs):
+            out[i] = int.from_bytes(row.tobytes(), "big") % q
+    return out
+
+
+def _ibytes(x: int, nbytes: int = 32) -> bytes:
+    return x.to_bytes(nbytes, "big")
+
+
+def is_group_element(x: int, group: GroupParams = DEFAULT_GROUP) -> bool:
+    """Strict membership test for the prime-order QR subgroup:
+    ``1 < x < P`` and ``x^Q == 1 (mod P)``.
+
+    Rejects 0, the identity, P-1 (the order-2 element) and every
+    non-residue — the inputs a Byzantine proposer could use to make all
+    honest decryption shares unverifiable forever (each honest node's
+    d_i = c1^{s_i} then fails its own CP proof, burning every honest
+    sender in the SharePool and stalling _maybe_commit), or to leak
+    share parities via the order-2 component.  One ~256-bit modexp on
+    host per check; callers run it once per deserialized ciphertext.
+    """
+    return 1 < x < group.p and host_pow(x, group.q, group) == 1
+
+
+def hash_to_group(data: bytes, group: GroupParams = DEFAULT_GROUP) -> int:
+    """Map bytes to the QR subgroup with unknown discrete log:
+    (H(data) mod p)^2 mod p."""
+    x = _hash_to_int(b"h2g", data) % group.p
+    if x == 0:
+        x = 1
+    return pow(x, 2, group.p)
+
+
+# ---------------------------------------------------------------------------
+# Shamir secret sharing over Z_q
+# ---------------------------------------------------------------------------
+
+
+def _shamir_shares(
+    secret: int, n: int, threshold: int, rng_bytes, q: int = Q
+) -> List[int]:
+    """Evaluate a random degree-(threshold-1) polynomial with
+    f(0)=secret at x = 1..n."""
+    nb = max(32, (q.bit_length() + 7) // 8 + 8)  # excess bits: no bias
+    coeffs = [secret] + [
+        int.from_bytes(rng_bytes(nb), "big") % q for _ in range(threshold - 1)
+    ]
+    shares = []
+    for x in range(1, n + 1):
+        acc = 0
+        for c in reversed(coeffs):
+            acc = (acc * x + c) % q
+        shares.append(acc)
+    return shares
+
+
+@functools.lru_cache(maxsize=4096)
+def _lagrange_cached(xs: tuple, q: int) -> tuple:
+    out = []
+    for i, xi in enumerate(xs):
+        num, den = 1, 1
+        for j, xj in enumerate(xs):
+            if i == j:
+                continue
+            num = num * xj % q
+            den = den * ((xj - xi) % q) % q
+        out.append(num * pow(den, -1, q) % q)
+    return tuple(out)
+
+
+def lagrange_coeff_at_zero(xs: Sequence[int], q: int = Q) -> List[int]:
+    """lambda_i = prod_{j!=i} x_j / (x_j - x_i) mod q, for interpolation
+    at 0 (Shamir recovery, docs/THRESHOLD_ENCRYPTION-EN.md:36).
+
+    Cached by index set: an epoch combines N proposals from largely
+    the SAME threshold subset of share indices, and the O(t^2) python
+    coefficient loop was measurable at N=64 (t=22)."""
+    return list(_lagrange_cached(tuple(xs), q))
+
+
+# ---------------------------------------------------------------------------
+# Generic threshold-DH: keygen, share issuance w/ CP proof, batched verify,
+# Lagrange combine.  TPKE and the common coin both instantiate this.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ThresholdPublicKey:
+    n: int
+    threshold: int
+    master: int  # h = g^s
+    verification_keys: tuple  # h_i = g^{s_i}, 1-indexed by share x = i+1
+    # the group every share op under this key runs in (the modulus
+    # seam: a key set carries its own parameters end to end)
+    group: GroupParams = DEFAULT_GROUP
+
+
+@dataclasses.dataclass(frozen=True)
+class ThresholdSecretShare:
+    index: int  # Shamir x-coordinate (1-based)
+    value: int  # s_i
+
+
+class DhShare(NamedTuple):
+    """d = base^{s_i} plus a Chaum-Pedersen proof (e, z) that
+    log_g(h_i) == log_base(d).
+
+    A NamedTuple, not a dataclass: a live N=64 epoch creates ~1M of
+    these and frozen-dataclass ``__init__`` was a visible profile
+    line."""
+
+    index: int
+    d: int
+    e: int
+    z: int
+
+
+def deal(
+    n: int,
+    threshold: int,
+    seed: Optional[int] = None,
+    group: GroupParams = DEFAULT_GROUP,
+) -> tuple:
+    """Trusted-dealer setup (TPKE.SetUp): master pubkey + n secret
+    shares.  Deterministic iff ``seed`` given (tests/benchmarks)."""
+    if seed is not None:
+        ctr = [0]
+
+        def rng_bytes(k: int) -> bytes:
+            out = b""
+            while len(out) < k:  # k may exceed one digest (large groups)
+                ctr[0] += 1
+                out += hashlib.sha256(
+                    b"dealer|%d|%d" % (seed, ctr[0])
+                ).digest()
+            return out[:k]
+
+    else:
+        rng_bytes = secrets.token_bytes  # staticcheck: allow[DET001] unseeded dealer keygen
+    # 8 excess bytes: the reduction mod q is statistically unbiased
+    # (bias < 2^-64), matching _shamir_shares' rule
+    s = int.from_bytes(rng_bytes(group.nbytes + 8), "big") % group.q
+    shares = _shamir_shares(s, n, threshold, rng_bytes, group.q)
+    vks = host_pow_batch([group.g] * (n + 1), [s] + shares, group)
+    pub = ThresholdPublicKey(
+        n=n,
+        threshold=threshold,
+        master=vks[0],
+        verification_keys=tuple(vks[1:]),
+        group=group,
+    )
+    return pub, [
+        ThresholdSecretShare(index=i + 1, value=si)
+        for i, si in enumerate(shares)
+    ]
+
+
+def issue_shares_batch(
+    items: Sequence[tuple],
+    group: GroupParams = DEFAULT_GROUP,
+    backend: str = "cpu",
+) -> List[DhShare]:
+    """Issue MANY shares in one batched exponentiation dispatch.
+
+    ``items``: sequence of ``(share, base, context, vk)`` — ``vk`` is
+    the issuer's public verification key g^{s_i} (``None`` recomputes
+    it, costing one extra exponentiation per item).  Semantics match
+    ``issue_share`` exactly; this is the lockstep executor's path,
+    where a synchronous wave issues N^2 coin/decryption shares at once
+    (protocol.spmd) instead of one 4-exponentiation batch per share.
+    """
+    if not items:
+        return []
+    eng = get_engine_degraded(backend, group)
+    q, g = group.q, group.g
+    nbytes = group.nbytes
+    # Exponentiations grouped by base — a wave shares a handful of
+    # bases (the generator g plus one coin base / ciphertext c1 per
+    # instance), which is exactly the fixed-base comb kernel's shape
+    # (ModEngine.pow_batch_grouped).
+    ws = []
+    g_exps: List[int] = []
+    by_base: Dict[int, List[int]] = {}
+    # ONE urandom draw for the whole wave (a lockstep wave issues
+    # ~N^2 shares; per-item token_bytes was one syscall each), sliced
+    # per item — same unbiased nonce rule (and reason) as issue_share
+    stride = nbytes + 8
+    nonce_pool = secrets.token_bytes(  # staticcheck: allow[DET001] CP-proof nonces
+        stride * len(items)
+    )
+    off = 0
+    for share, base, _context, vk in items:
+        w = int.from_bytes(nonce_pool[off : off + stride], "big") % q
+        off += stride
+        ws.append(w)
+        g_exps.append(w)  # a1 = g^w
+        if vk is None:
+            g_exps.append(share.value)  # h_i = g^{s_i}
+        be = by_base.setdefault(base, [])
+        be.append(w)  # a2 = base^w
+        be.append(share.value)  # d = base^{s_i}
+    base_order = list(by_base)
+    groups = [(g, g_exps)] + [(b, by_base[b]) for b in base_order]
+    pows = eng.pow_batch_grouped(groups)
+    g_res = pows[0]
+    base_res = {b: res for b, res in zip(base_order, pows[1:])}
+    base_off = {b: 0 for b in base_order}
+    g_off = 0
+    a1s: List[int] = []
+    his: List[int] = []
+    a2s: List[int] = []
+    ds: List[int] = []
+    for share, base, _context, vk in items:
+        a1s.append(g_res[g_off])
+        g_off += 1
+        if vk is None:
+            his.append(g_res[g_off])
+            g_off += 1
+        else:
+            his.append(vk)
+        bo = base_off[base]
+        a2s.append(base_res[base][bo])
+        ds.append(base_res[base][bo + 1])
+        base_off[base] = bo + 2
+    es = _cp_challenge_batch(
+        [it[2] for it in items],
+        [it[1] for it in items],
+        his,
+        ds,
+        a1s,
+        a2s,
+        group,
+    )
+    return [
+        DhShare(
+            index=share.index,
+            d=d,
+            e=e,
+            z=(w + e * share.value) % q,
+        )
+        for (share, _b, _c, _vk), w, d, e in zip(items, ws, ds, es)
+    ]
+
+
+def combine_shares_batch(
+    share_sets: Sequence[Sequence[DhShare]],
+    threshold: int,
+    group: GroupParams = DEFAULT_GROUP,
+    backend: str = "cpu",
+) -> List[int]:
+    """Lagrange-combine many independent share sets in ONE
+    exponentiation dispatch (each set >= threshold verified shares;
+    result order matches input order).  Equivalent to mapping
+    ``combine_shares``, and shares its memo."""
+    if not share_sets:
+        return []
+    eng = get_engine_degraded(backend, group)
+    results: List[Optional[int]] = [None] * len(share_sets)
+    bases_flat: List[int] = []
+    exps_flat: List[int] = []
+    spans: List[tuple] = []  # (set_idx, memo_key, n_terms)
+    for si, shares in enumerate(share_sets):
+        if len(shares) < threshold:
+            raise ValueError(
+                f"need >= {threshold} shares to combine, got {len(shares)}"
+            )
+        use = sorted(shares, key=lambda s: s.index)[:threshold]
+        xs = [s.index for s in use]
+        if len(set(xs)) != len(xs):
+            raise ValueError("duplicate share indices")
+        key = (group, threshold, tuple((s.index, s.d) for s in use))
+        hit = _COMBINE_MEMO.get(key)
+        if hit is not None:
+            results[si] = hit
+            continue
+        lams = lagrange_coeff_at_zero(xs, group.q)
+        bases_flat.extend(sh.d % group.p for sh in use)
+        exps_flat.extend(lams)
+        spans.append((si, key, threshold))
+    if bases_flat:
+        pows = eng.pow_batch(bases_flat, exps_flat)
+        off = 0
+        for si, key, n_terms in spans:
+            acc = 1
+            for term in pows[off : off + n_terms]:
+                acc = acc * term % group.p
+            off += n_terms
+            if len(_COMBINE_MEMO) >= _COMBINE_MEMO_CAP:
+                _COMBINE_MEMO.clear()
+            _COMBINE_MEMO[key] = acc
+            results[si] = acc
+    return results  # type: ignore[return-value]
+
+
+def _verify_dual_items(gp, groups, idx_list):
+    """The (u1, e1, u2, e2) dual-exponentiation lists recomputing
+    (A1, A2) for every share of ``idx_list``'s groups — shared by the
+    plain and the fused verifiers so the two can never drift."""
+    u1, e1, u2, e2 = [], [], [], []
+    for gi in idx_list:
+        pub, base, shares, _context = groups[gi]
+        for sh in shares:
+            if not (1 <= sh.index <= pub.n):
+                # out-of-roster index: verified vacuously false by
+                # pinning to vk=1 (never matches a real transcript)
+                hi = 1
+            else:
+                hi = pub.verification_keys[sh.index - 1]
+            neg_e = (-sh.e) % gp.q
+            # A1 = g^z * hi^{-e}
+            u1.append(gp.g); e1.append(sh.z % gp.q)
+            u2.append(hi); e2.append(neg_e)
+            # A2 = base^z * d^{-e}
+            u1.append(base); e1.append(sh.z % gp.q)
+            u2.append(sh.d % gp.p); e2.append(neg_e)
+    return u1, e1, u2, e2
+
+
+def _cp_verdicts(gp, groups, idx_list, a) -> Dict[int, List[bool]]:
+    """Verdicts from the recomputed (A1, A2) stream ``a`` (two entries
+    per share, idx_list order): assemble every transcript, run ONE
+    batched challenge hash, compare — shared by the plain and fused
+    verifiers."""
+    off = 0
+    ctxs: List[bytes] = []
+    basel: List[int] = []
+    hil: List[int] = []
+    dl: List[int] = []
+    a1l: List[int] = []
+    a2l: List[int] = []
+    struct_ok: List[bool] = []
+    want_e: List[int] = []
+    for gi in idx_list:
+        pub, base, shares, context = groups[gi]
+        for sh in shares:
+            a1, a2 = a[off], a[off + 1]
+            off += 2
+            ok = (1 <= sh.index <= pub.n) and (0 < sh.d < gp.p)
+            hi = pub.verification_keys[sh.index - 1] if ok else 1
+            ctxs.append(context)
+            basel.append(base)
+            hil.append(hi)
+            dl.append(sh.d % gp.p)
+            a1l.append(a1)
+            a2l.append(a2)
+            struct_ok.append(ok)
+            want_e.append(sh.e % gp.q)
+    es = _cp_challenge_batch(ctxs, basel, hil, dl, a1l, a2l, gp)
+    results: Dict[int, List[bool]] = {}
+    k = 0
+    for gi in idx_list:
+        _pub, _base, shares, _context = groups[gi]
+        res = []
+        for _sh in shares:
+            res.append(struct_ok[k] and es[k] == want_e[k])
+            k += 1
+        results[gi] = res
+    return results
+
+
+def verify_and_combine_share_groups(
+    groups: Sequence[tuple],
+    threshold: int,
+    backend: str = "cpu",
+    combine_only_sets: Sequence[Sequence[DhShare]] = (),
+    combine_only_group: Optional[GroupParams] = None,
+) -> Tuple[List[List[bool]], List[Optional[int]], List[int]]:
+    """Verify every group's CP proofs AND Lagrange-combine each group's
+    first ``threshold`` shares in ONE fused dual-exponentiation
+    dispatch (half the device round-trips of verify + combine run
+    separately — the lockstep BBA's per-round critical path).
+
+    ``groups`` is ``(pub, base, shares, context)`` as in
+    ``verify_share_groups``; returns ``(verdicts, values)`` where
+    ``values[i]`` is the combination of group i's shares (``None``
+    when the group has fewer than ``threshold`` shares).  Combination
+    does not wait for the verdicts — callers must discard the value
+    of any group whose verdicts fail (the lockstep executor asserts
+    them; the live path uses the unfused ops).  Results seed the
+    combine memo, so a later ``combine_shares`` on the same subset is
+    a pure host hit.
+
+    ``combine_only_sets`` are additional share sets (same threshold,
+    group ``combine_only_group`` — defaults to the first group's) to
+    Lagrange-combine WITHOUT verification in the same dispatch: the
+    lockstep executor rides its whole optimistic-decrypt wave on BBA
+    round 0's device round-trip this way.  Their values are the third
+    returned list."""
+    if not groups and not combine_only_sets:
+        return [], [], []
+    by_gp: Dict[GroupParams, List[int]] = {}
+    for gi, (pub, _base, _shares, _context) in enumerate(groups):
+        by_gp.setdefault(pub.group, []).append(gi)
+    co_gp: Optional[GroupParams] = None
+    if combine_only_sets:
+        if combine_only_group is not None:
+            co_gp = combine_only_group
+        elif groups:
+            co_gp = groups[0][0].group
+        else:
+            # guessing a group here would produce a well-formed but
+            # cryptographically WRONG combination (and memoize it)
+            raise ValueError(
+                "combine_only_sets without groups requires an "
+                "explicit combine_only_group"
+            )
+        by_gp.setdefault(co_gp, [])
+    verdicts: Dict[int, List[bool]] = {}
+    values: Dict[int, Optional[int]] = {}
+    co_values: List[int] = [0] * len(combine_only_sets)
+    for gp, idx_list in by_gp.items():
+        eng = get_engine_degraded(backend, gp)
+        # verification duals first (2 per share), then combine terms
+        # (threshold per set) ride the same dispatch as u2^0 = 1
+        # dummy-factor duals
+        u1, e1, u2, e2 = _verify_dual_items(gp, groups, idx_list)
+        n_dual = len(u1)
+        comb_spans: List[tuple] = []  # (store(value), memo_key)
+
+        def queue_combine(shares, store) -> None:
+            """Memo-hit now or queue threshold Lagrange terms; the
+            post-dispatch loop below routes the product to ``store``.
+            One body for both the verified groups and the
+            combine-only sets — they cannot drift."""
+            use = sorted(shares, key=lambda s: s.index)[:threshold]
+            xs = [s.index for s in use]
+            if len(set(xs)) != len(xs):
+                raise ValueError("duplicate share indices")
+            key = (gp, threshold, tuple((s.index, s.d) for s in use))
+            hit = _COMBINE_MEMO.get(key)
+            if hit is not None:
+                store(hit)
+                return
+            lams = lagrange_coeff_at_zero(xs, gp.q)
+            for sh, lam in zip(use, lams):
+                u1.append(sh.d % gp.p); e1.append(lam)
+                u2.append(1); e2.append(0)
+            comb_spans.append((store, key))
+
+        for gi in idx_list:
+            pub, _base, shares, _context = groups[gi]
+            if len(shares) < threshold:
+                values[gi] = None
+                continue
+            queue_combine(
+                shares, lambda v, gi=gi: values.__setitem__(gi, v)
+            )
+        if gp == co_gp:  # equality, not identity: by_gp keys by value
+            for ci, shares in enumerate(combine_only_sets):
+                if len(shares) < threshold:
+                    raise ValueError(
+                        f"need >= {threshold} shares, got {len(shares)}"
+                    )
+                queue_combine(
+                    shares, lambda v, ci=ci: co_values.__setitem__(ci, v)
+                )
+        a = eng.dual_pow_batch(u1, e1, u2, e2)
+        verdicts.update(_cp_verdicts(gp, groups, idx_list, a))
+        off = n_dual
+        for store, key in comb_spans:
+            acc = 1
+            for term in a[off : off + threshold]:
+                acc = acc * term % gp.p
+            off += threshold
+            if len(_COMBINE_MEMO) >= _COMBINE_MEMO_CAP:
+                _COMBINE_MEMO.clear()
+            _COMBINE_MEMO[key] = acc
+            store(acc)
+    return (
+        [verdicts[gi] for gi in range(len(groups))],
+        [values[gi] for gi in range(len(groups))],
+        co_values,
+    )
+
+
+# The combined value is a pure function of (group, threshold, the
+# chosen subset's (index, d) pairs) — z/e play no part in combining.
+# Every node of a cluster combines the same subset for the same coin
+# or ciphertext, so a bounded memo turns N identical ~threshold-sized
+# exponentiation batches into one (cleared wholesale at the cap; keys
+# carry the share values, so distinct inputs can never collide).
+# Entries hold threshold-many group elements (KBs at large N), so the
+# cap is deliberately small; a working set is ~2N live combines.
+_COMBINE_MEMO: Dict[tuple, int] = {}
+_COMBINE_MEMO_CAP = 1 << 12
+
+
+def combine_shares(
+    shares: Sequence[DhShare],
+    threshold: int,
+    group: GroupParams = DEFAULT_GROUP,
+) -> int:
+    """Lagrange-combine >= threshold verified shares into base^s."""
+    if len(shares) < threshold:
+        raise ValueError(
+            f"need >= {threshold} shares to combine, got {len(shares)}"
+        )
+    use = sorted(shares, key=lambda s: s.index)[:threshold]
+    xs = [s.index for s in use]
+    if len(set(xs)) != len(xs):
+        raise ValueError("duplicate share indices")
+    key = (group, threshold, tuple((s.index, s.d) for s in use))
+    hit = _COMBINE_MEMO.get(key)
+    if hit is not None:
+        return hit
+    lams = lagrange_coeff_at_zero(xs, group.q)
+    acc = 1
+    for term in host_pow_batch([sh.d % group.p for sh in use], lams, group):
+        acc = acc * term % group.p
+    if len(_COMBINE_MEMO) >= _COMBINE_MEMO_CAP:
+        _COMBINE_MEMO.clear()
+    _COMBINE_MEMO[key] = acc
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# TPKE proper: hashed-ElGamal KEM over the threshold-DH core
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Ciphertext:
+    c1: int  # g^r
+    c2: bytes  # msg XOR keystream
+    tag: bytes  # integrity tag binding (key, c1, c2)
+
+
+def _keystream(key: bytes, length: int) -> bytes:
+    n_blocks = (length + 31) // 32
+    if n_blocks >= 16:
+        # batch-size payloads (tens of KB per proposer): hash every
+        # counter block in one native crossing — byte-identical to
+        # the scalar loop below
+        from cleisthenes_tpu_torch.ops.hashrows import sha256_rows
+
+        k = len(key)
+        rows = np.empty((n_blocks, k + 6), dtype=np.uint8)
+        rows[:, :k] = np.frombuffer(key, dtype=np.uint8)
+        rows[:, k : k + 4] = (
+            np.arange(n_blocks, dtype=">u4")
+            .view(np.uint8)
+            .reshape(n_blocks, 4)
+        )
+        rows[:, k + 4] = ord("k")
+        rows[:, k + 5] = ord("s")
+        return sha256_rows(rows).tobytes()[:length]
+    out = []
+    ctr = 0
+    while 32 * len(out) < length:
+        out.append(
+            hashlib.sha256(key + ctr.to_bytes(4, "big") + b"ks").digest()
+        )
+        ctr += 1
+    return b"".join(out)[:length]
+
+
+def _xor_bytes(a: bytes, b: bytes) -> bytes:
+    """a ^ b over equal-length byte strings, vectorized: the stream
+    cipher runs over whole proposed batches (tens of KB per proposer),
+    where a per-byte python loop costs more than the group math."""
+    import numpy as np
+
+    return (
+        np.frombuffer(a, dtype=np.uint8) ^ np.frombuffer(b, dtype=np.uint8)
+    ).tobytes()
+
+
+class Tpke:
+    """Threshold decryption service for one key set."""
+
+    def __init__(
+        self, pub: ThresholdPublicKey, backend: str = "cpu"
+    ):
+        self.pub = pub
+        self.backend = backend
+        self.group = pub.group  # the key set carries its group
+
+    # TPKE.Encrypt (docs/THRESHOLD_ENCRYPTION-EN.md:34)
+    def encrypt(self, msg: bytes, rng=secrets) -> Ciphertext:
+        gp = self.group
+        # 8 excess bytes: unbiased KEM exponent (same rule as
+        # _shamir_shares / issue_share)
+        r = (
+            int.from_bytes(rng.token_bytes(gp.nbytes + 8), "big") % gp.q
+        )
+        c1, kem = host_pow_batch(
+            [gp.g, self.pub.master], [r, r], gp
+        )  # g^r, h^r
+        key = hashlib.sha256(b"kem" + _ibytes(kem, gp.nbytes)).digest()
+        c2 = _xor_bytes(msg, _keystream(key, len(msg)))
+        tag = hmac.new(
+            key, _ibytes(c1, gp.nbytes) + c2, hashlib.sha256
+        ).digest()
+        return Ciphertext(c1=c1, c2=c2, tag=tag)
+
+    def context(self, ct: Ciphertext) -> bytes:
+        """The CP-proof context binding shares to this ciphertext
+        (public: the protocol hub groups cross-instance verifies by
+        (pub, base, context))."""
+        return (
+            b"tpke|"
+            + _ibytes(ct.c1, self.group.nbytes)
+            + hashlib.sha256(ct.c2).digest()
+        )
+
+    # TPKE.Decrypt (docs/THRESHOLD_ENCRYPTION-EN.md:36)
+    def combine(
+        self, ct: Ciphertext, shares: Sequence[DhShare]
+    ) -> bytes:
+        """Recover the plaintext from >= f+1 *verified* shares.
+
+        Raises ValueError if the integrity tag does not check out —
+        deterministically for every correct node, since the combined
+        KEM value is independent of which valid share subset was used.
+        """
+        kem = combine_shares(shares, self.pub.threshold, self.group)
+        key = hashlib.sha256(b"kem" + _ibytes(kem, self.group.nbytes)).digest()
+        tag = hmac.new(
+            key, _ibytes(ct.c1, self.group.nbytes) + ct.c2, hashlib.sha256
+        ).digest()
+        if not hmac.compare_digest(tag, ct.tag):
+            raise ValueError("TPKE integrity check failed")
+        return _xor_bytes(ct.c2, _keystream(key, len(ct.c2)))
+
+
+__all__ = [
+    "is_group_element",
+    "ThresholdPublicKey",
+    "ThresholdSecretShare",
+    "DhShare",
+    "Ciphertext",
+    "deal",
+    "issue_shares_batch",
+    "verify_and_combine_share_groups",
+    "combine_shares",
+    "combine_shares_batch",
+    "lagrange_coeff_at_zero",
+    "hash_to_group",
+    "Tpke",
+]
