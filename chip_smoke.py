@@ -16,15 +16,30 @@ before printing any result.  It prints, in order:
    N=128/f=42 shapes of a real epoch and on an N=100/f=33 roster (whose
    forest pads leaves with the empty-leaf digest), each held byte for
    byte against its plain PyTorch version on the same inputs, with
-   samples held against ``hashlib``.  At N=128 each line carries the
-   kernel's time (CUDA events, median of 20 calls after a warm-up),
-   the plain version's (median of 3), launches per call and the bound;
+   samples held against ``hashlib``; then the modexp entry points — the
+   comb (257 bases: g with 32,768 exponents, 256 bases with 256 each,
+   one table per base as the engine sends them), the dual pow (22,016
+   items, half of them Lagrange rows u2=1, e2=0), the generic pow
+   (5,504 items) and the Montgomery product (16,384) — held against
+   their plain versions and against Python's ``pow`` on a sample, in
+   the default group and, parity only, in a second 256-bit group.  At
+   N=128 each line carries the kernel's time (CUDA events, median of 20
+   calls after a warm-up), the plain version's (median of 3), launches
+   per call and the bound;
 3. the main path: ``LockstepCluster(n=128, batch_size=10000,
    key_seed=77)`` with its defaults (the 'cuda' backend) commits
    3 epochs of random 64-byte transactions; every transaction must
-   commit exactly once and every RBC entry point's launch count must
-   rise during the epochs;
-4. the ``{"kernels": [...]}`` JSON line, the card line again, and last
+   commit exactly once and the launch counts of the RBC entry points,
+   the comb (share issue) and the dual pow (CP verify with the fused
+   Lagrange combine) must rise during the epochs.  Each epoch's line
+   splits ``bba_s`` by the modexp engine's own ``stats``;
+4. the decrypt-combine phase: one more epoch of fresh transactions,
+   whose 128 decryption-share sets (43 shares each) are kept from its
+   fused verify/combine call and combined again through
+   ``combine_shares_batch(..., backend='cuda')`` — the unfused decrypt
+   branch, one generic-pow dispatch — must give the values the epoch's
+   fused dispatch left in the combine memo;
+5. the ``{"kernels": [...]}`` JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere is zero: all of this is exact integer math.  Any
@@ -36,6 +51,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -57,6 +73,13 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # second block is mostly constant padding.
 SHA_OPS_PER_BLOCK = 1383
 SHA_OPS_PER_NODE = 2675
+# 32-bit instructions of one Montgomery product (csrc/modexp.cu
+# ``mont_prod``, 8 x 32-bit CIOS and its conditional subtract), counted
+# by the same script in ``probe_mont``: 205 IMAD, 187 IADD3, 15 SHF,
+# 8 SEL and the rest.
+MONT_OPS = 429
+# the second 256-bit safe prime of the repository's group tests
+P2 = 0x93A40B764F1F5026ADA7C38AA3EF4EE81E01E89F9FE80837B1E370913DA99F13
 
 N, F, BATCH, EPOCHS, KEY_SEED, TX_BYTES = 128, 42, 10000, 3, 77, 64
 
@@ -275,13 +298,206 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
     return out
 
 
-def main_path(torch, n: int, batch: int, epochs: int, **overrides) -> dict:
-    """The port's main path through its user entry point, with its
-    defaults unless ``overrides`` (a CPU rehearsal passes
-    device='cpu')."""
+def _bits(np, e):
+    """(B, 32) big-endian exponent bytes -> (B, 256) bits, MSB first."""
+    return np.unpackbits(e, axis=1)
+
+
+def _bitlen_pop(np, bits):
+    pop = bits.sum(1).astype(np.int64)
+    first = bits.argmax(1)
+    return np.where(pop > 0, 256 - first, 0), pop
+
+
+def pow_products(np, base, exp) -> int:
+    """Montgomery products the binary method needs for these inputs:
+    into the domain (a second product folds a 33rd byte), a squaring per
+    exponent bit below the top one, a multiply per further set bit, out
+    of the domain."""
+    blen, pop = _bitlen_pop(np, _bits(np, exp))
+    fold = (base[:, 32] != 0).astype(np.int64)
+    return int((np.maximum(blen - 1, 0) + np.maximum(pop - 1, 0) + 2 + fold).sum())
+
+
+def dual_products(np, u1, e1, u2, e2) -> int:
+    """Shamir's trick: both bases into the domain, their product, a
+    squaring per bit below the top one of either exponent, a multiply
+    per further position where either exponent has a bit, out."""
+    both = _bits(np, e1) | _bits(np, e2)
+    blen, pop = _bitlen_pop(np, both)
+    fold = (u1[:, 32] != 0).astype(np.int64) + (u2[:, 32] != 0)
+    return int((np.maximum(blen - 1, 0) + np.maximum(pop - 1, 0) + 4 + fold).sum())
+
+
+def comb_products(np, bases, exps) -> int:
+    """The comb: per base, into the domain, the 252 squarings of the
+    chain and 14 products for each of the 64 table rows; per exponent,
+    a multiply per nonzero nibble after the first, out of the domain."""
+    rows = bases.shape[0]
+    e = exps
+    nz = ((e >> 4) != 0).sum(1) + ((e & 15) != 0).sum(1)
+    folds = int((bases[:, 32] != 0).sum())
+    return rows * (1 + 252 + 64 * 14) + folds + int((np.maximum(nz - 1, 0) + 1).sum())
+
+
+def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
+    """The modexp entry points on ``dev`` in the group mod ``p``, at the
+    main path's shapes when ``timed`` (else small, parity only), each
+    held against its plain version and against Python's ``pow`` on a
+    sample; returns {entry point: record}."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+    from cleisthenes_tpu_torch.ops.modmath import (
+        bytes33_to_ints, exps_to_bytes, ints_to_bytes33,
+    )
+
+    q = (p - 1) // 2
+    spec = mx.mont_spec(p)
+    n_g, n_b, g_b = (32768, 256, 256) if timed else (1100, 16, 70)
+    n_dual, n_pow, n_mont = (22016, 5504, 16384) if timed else (1024, 1024, 1024)
+
+    def put(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    def ints_of(t):
+        return bytes33_to_ints(t.cpu().numpy().reshape(-1, 33))
+
+    def vals(n):
+        return [rnd.randrange(p) for _ in range(n)]
+
+    def exps(n):
+        return [rnd.randrange(q) for _ in range(n)]
+
+    edge_b = [0, 1, p - 1, p + 5, 2**264 - 1]
+    edge_e = [0, 1, q, 2**256 - 1, 3]
+
+    # K9: one round-0 issue wave as the engine sends it: a table per
+    # distinct base, a row index per exponent
+    comb_bases = [4] + edge_b + vals(n_b - len(edge_b))
+    comb_rows = [0] * n_g + [1 + i // g_b for i in range(n_b * g_b)]
+    comb_np = (
+        ints_to_bytes33([b % p for b in comb_bases]),
+        exps_to_bytes(exps(n_g + n_b * g_b)),
+        np.array(comb_rows, dtype=np.int32),
+    )
+    comb = tuple(put(a) for a in comb_np)
+    # K8: CP checks (u1 = g or a base) and as many Lagrange rows (u2=1, e2=0)
+    half = n_dual // 2
+    u1_i = edge_b + vals(n_dual - len(edge_b))
+    e1_i = edge_e + exps(n_dual - len(edge_e))
+    u2_i = vals(half) + [1] * (n_dual - half)
+    e2_i = exps(half) + [0] * (n_dual - half)
+    dual_np = (ints_to_bytes33(u1_i), exps_to_bytes(e1_i), ints_to_bytes33(u2_i), exps_to_bytes(e2_i))
+    dual = tuple(put(a) for a in dual_np)
+    # K7 and K10
+    pow_np = (ints_to_bytes33(edge_b + vals(n_pow - len(edge_b))), exps_to_bytes(edge_e + exps(n_pow - len(edge_e))))
+    pw = tuple(put(a) for a in pow_np)
+    mont_np = (ints_to_bytes33(vals(n_mont)), ints_to_bytes33(vals(n_mont)))
+    mm_ = tuple(put(a) for a in mont_np)
+
+    def as_ints(a):
+        return [int.from_bytes(r.tobytes(), "big") for r in a]
+
+    r_inv = pow(2**256, -1, p)
+    cases = {
+        "pow_grouped": (
+            lambda: mx.pow_fused_grouped(*comb, spec),
+            lambda: mx.pow_fused_grouped_plain(*comb, spec),
+            comb_np[0].size + comb_np[1].size + comb_np[2].nbytes + len(comb_rows) * 33,
+            comb_products(np, comb_np[0], comb_np[1]),
+        ),
+        "dual_pow": (
+            lambda: mx.dual_pow_fused(*dual, spec),
+            lambda: mx.dual_pow_fused_plain(*dual, spec),
+            n_dual * (3 * 33 + 2 * 32), dual_products(np, *dual_np),
+        ),
+        "pow": (
+            lambda: mx.pow_fused(*pw, spec),
+            lambda: mx.pow_fused_plain(*pw, spec),
+            n_pow * (33 + 32 + 33), pow_products(np, *pow_np),
+        ),
+        "mont_mul": (
+            lambda: mx.mont_mul_batch(*mm_, spec),
+            lambda: mx.mont_mul_batch_plain(*mm_, spec),
+            n_mont * 3 * 33, n_mont,
+        ),
+    }
+
+    def sample_ok(name, got) -> bool:
+        """Python's pow on 48 sampled items."""
+        res = ints_of(got)
+        if name == "pow_grouped":
+            flat = as_ints(comb_np[1])
+            idx = list(range(n_g - 3, n_g + 3)) + rnd.sample(range(len(res)), 42)
+            return all(res[i] == pow(comb_bases[comb_rows[i]], flat[i], p) for i in idx)
+        idx = list(range(5)) + rnd.sample(range(5, len(res)), 43)
+        if name == "pow":
+            bs, es = bytes33_to_ints(pow_np[0]), as_ints(pow_np[1])
+            return all(res[i] == pow(bs[i], es[i], p) for i in idx)
+        if name == "dual_pow":
+            a, x = bytes33_to_ints(dual_np[0]), as_ints(dual_np[1])
+            b, y = bytes33_to_ints(dual_np[2]), as_ints(dual_np[3])
+            return all(res[i] == pow(a[i], x[i], p) * pow(b[i], y[i], p) % p for i in idx)
+        xs, ys = bytes33_to_ints(mont_np[0]), bytes33_to_ints(mont_np[1])
+        return all(res[i] == xs[i] * ys[i] * r_inv % p for i in idx)
+
+    out = {}
+    for name, (kern, plain, nbytes, products) in cases.items():
+        before = sum(COUNTS.kernels.values())
+        got = kern()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        per_call = sum(COUNTS.kernels.values()) - before
+        want = plain()
+        equal = torch.equal(got, want)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        rec = {"equal": equal and sample_ok(name, got), "max_abs_err": float(err),
+               "launches_per_call": per_call}
+        if timed:
+            rec["kernel_ms"] = time_ms(torch, kern, 20)
+            rec["plain_ms"] = time_ms(torch, plain, 3)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, products * MONT_OPS)
+        line = (
+            f"kernel {name} p={hex(p)[:10]}.. shape={tuple(got.shape)}: "
+            f"equal={rec['equal']} launches_per_call={per_call}"
+        )
+        if timed:
+            line += (
+                f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']}"
+                f" bound_ms={rec['bound_ms']} ({rec['bound_by']}, {products} products)"
+            )
+        print(line, flush=True)
+        out[name] = rec
+    return out
+
+
+def engine_split(engines, before) -> dict:
+    """Splits ``bba_s`` by the 'cuda' modexp engines' own ``stats``
+    since ``before``: seconds inside their batch calls (``engine_s``),
+    of which ``device_s`` went from upload to the result's download
+    (copies, kernel and the wait on it) and the rest to the host's
+    int<->bytes packing; the remainder of ``bba_s`` is the protocol's
+    host Python.  The host engine's calls (the propose wave's
+    encryptions, subgroup checks) are not counted."""
+    out = {"engine_calls": 0, "engine_s": 0.0, "device_s": 0.0}
+    for eng, old in zip(engines, before):
+        out["engine_calls"] += eng.stats["calls"] - old["calls"]
+        out["engine_s"] += eng.stats["engine_s"] - old["engine_s"]
+        out["device_s"] += eng.stats["device_s"] - old["device_s"]
+    out["packing_s"] = out["engine_s"] - out["device_s"]
+    return out
+
+
+def main_path(torch, n: int, batch: int, epochs: int, **overrides):
+    """The port's main path through its user entry point, with its
+    defaults unless ``overrides`` (a CPU rehearsal passes
+    device='cpu'); returns (launch counts, the cluster)."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops.modmath import get_engine_degraded
     from cleisthenes_tpu_torch.protocol.spmd import LockstepCluster
 
     native = native_modpow_path()
@@ -300,15 +516,27 @@ def main_path(torch, n: int, batch: int, epochs: int, **overrides) -> dict:
     submitted = [row.tobytes() for row in txs]
     for tx in submitted:
         cluster.submit(tx)
+    on_card = cluster.crypto.erasure.device.type == "cuda"
+    engines = [
+        get_engine_degraded(cluster.crypto.engine_backend, gp, cluster.crypto.device)
+        for gp in {cluster.tpke.group, cluster.coin.group}
+    ]
     COUNTS.reset()
     epoch_s = []
     for e in range(epochs):
+        before = [dict(eng.stats) for eng in engines]
         s = cluster.run_epoch()
         epoch_s.append(s["epoch_s"])
         keys = ("propose_s", "rbc_encode_s", "rbc_verify_s", "rbc_decode_s",
                 "bba_s", "decrypt_s", "commit_s", "epoch_s", "bba_rounds")
-        print(f"epoch {e}: " + " ".join(f"{k_}={s[k_]}" for k_ in keys), flush=True)
-    if cluster.crypto.erasure.device.type == "cuda":
+        split = engine_split(engines, before)
+        split["bba_host_python_s"] = s["bba_s"] - split["engine_s"]
+        print(
+            f"epoch {e}: " + " ".join(f"{k_}={s[k_]}" for k_ in keys)
+            + "".join(f" {k_}={v}" for k_, v in split.items()),
+            flush=True,
+        )
+    if on_card:
         torch.cuda.synchronize()
     launches = {"kernels": dict(COUNTS.kernels), "sites": dict(COUNTS.sites)}
     committed = [tx for batch in cluster.committed_batches for tx in batch.tx_list()]
@@ -319,8 +547,8 @@ def main_path(torch, n: int, batch: int, epochs: int, **overrides) -> dict:
             f"committed {len(committed)} txs ({len(set(committed))} distinct)"
             f" of {len(submitted)} submitted"
         )
-    on_card = cluster.crypto.erasure.device.type == "cuda"
-    for site in ("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck"):
+    for site in ("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
+                 "pow_grouped", "dual_pow"):
         if on_card and launches["sites"].get(site, 0) <= 0:
             raise AssertionError(f"main path never launched {site}: {launches}")
     print(
@@ -330,13 +558,87 @@ def main_path(torch, n: int, batch: int, epochs: int, **overrides) -> dict:
         flush=True,
     )
     print(
-        "waves: RBC (RS encode, Merkle forest, N^2 branch verify, fused "
-        "decode-recheck) on the port's CUDA kernels; BBA coin and "
-        f"decryption-share modexp on the host's native Montgomery kernel "
-        f"({native}; the device modexp is slice 2)",
+        "waves: propose (N TPKE encryptions) on the host's native Montgomery "
+        f"kernel ({native}); RBC (RS encode, Merkle forest, N^2 branch "
+        "verify, fused decode-recheck) on the port's CUDA kernels; BBA coin "
+        "and decryption-share issue on the CUDA comb (pow_grouped), CP "
+        "verify with the fused Lagrange and decrypt combines on the CUDA "
+        "dual pow (dual_pow); decrypt tail (memo hits, tag checks) and "
+        "commit on the host",
         flush=True,
     )
     print("launches_main_path " + json.dumps(launches, sort_keys=True), flush=True)
+    return launches, cluster
+
+
+def epoch_dec_sets(cluster, batch: int) -> list:
+    """One more epoch of fresh transactions, after the main path's, with
+    the fused verify/combine call wrapped to keep the decryption-share
+    sets (threshold shares per proposer) it combines; returns them."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.protocol import spmd
+
+    sets = []
+    real = spmd.verify_and_combine_share_groups
+
+    def keep(*args, **kwargs):
+        sets.extend(kwargs.get("combine_only_sets", ()))
+        return real(*args, **kwargs)
+
+    txs = np.random.default_rng(14).integers(0, 256, (batch, TX_BYTES), dtype=np.uint8)
+    for row in txs:
+        cluster.submit(row.tobytes())
+    spmd.verify_and_combine_share_groups = keep
+    try:
+        cluster.run_epoch()
+    finally:
+        spmd.verify_and_combine_share_groups = real
+    return sets
+
+
+def decrypt_combine_phase(torch, cluster, dev) -> dict:
+    """The unfused decrypt branch (protocol/spmd.py, distinct
+    thresholds): an extra epoch's decryption-share sets combined through
+    ``combine_shares_batch(..., backend='cuda')``, one generic-pow (K7)
+    dispatch, after clearing the combine memo that the epoch's fused
+    dual-pow dispatch filled.  Every value must equal that memo entry
+    and the host engine's combine."""
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import tpke
+
+    sets = epoch_dec_sets(cluster, cluster.config.batch_size)
+    thr = cluster.tpke.pub.threshold
+    group = cluster.tpke.group
+    keys = [
+        (group, thr, tuple((sh.index, sh.d) for sh in sorted(sub, key=lambda x: x.index)[:thr]))
+        for sub in sets
+    ]
+    memo = [tpke._COMBINE_MEMO.get(k) for k in keys]
+    tpke._COMBINE_MEMO.clear()
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    got = tpke.combine_shares_batch(sets, thr, group=group, backend="cuda", device=dev)
+    secs = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"kernels": dict(COUNTS.kernels), "sites": dict(COUNTS.sites)}
+    tpke._COMBINE_MEMO.clear()
+    host = tpke.combine_shares_batch(sets, thr, group=group, backend="cpu")
+    found = sum(v is not None for v in memo)
+    ok = (
+        len(got) == len(sets) == found
+        and got == memo == host
+        and (dev.type == "cpu" or launches["sites"].get("pow", 0) > 0)
+    )
+    print(
+        f"decrypt_combine: sets={len(sets)} threshold={thr} terms={len(sets) * thr} "
+        f"memo_hits_before={found} equal_to_memo={got == memo} equal_to_host={got == host} "
+        f"call_s={secs} launches={json.dumps(launches, sort_keys=True)}",
+        flush=True,
+    )
+    if not ok:
+        raise AssertionError("decrypt combine on the card disagrees or never launched pow")
     return launches
 
 
@@ -356,13 +658,20 @@ def native_modpow_path() -> str:
 
 
 KERNELS = (
-    # (entry point, source, TPU kernel replaced)
+    # (entry point, source, TPU kernel replaced); the launch counts of
+    # pow come from the decrypt-combine phase, of mont_mul (whose only
+    # callers are the tests) from its untimed call in the kernel phase,
+    # of the rest from the main path
     ("rs_encode", "cleisthenes_tpu_torch/csrc/gf256.cu", "cleisthenes_tpu/ops/rs_xla.py:59"),
     ("rs_decode", "cleisthenes_tpu_torch/csrc/gf256.cu", "cleisthenes_tpu/ops/rs_xla.py:65"),
     ("decode_recheck", "cleisthenes_tpu_torch/ops/rs_cuda.py", "cleisthenes_tpu/ops/rs_xla.py:80"),
     ("sha256_rows", "cleisthenes_tpu_torch/csrc/sha256.cu", "cleisthenes_tpu/ops/sha256_xla.py:127"),
     ("merkle_forest", "cleisthenes_tpu_torch/csrc/sha256.cu", "cleisthenes_tpu/ops/sha256_xla.py:157"),
     ("merkle_verify", "cleisthenes_tpu_torch/csrc/sha256.cu", "cleisthenes_tpu/ops/sha256_xla.py:206"),
+    ("pow", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:551"),
+    ("dual_pow", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:592"),
+    ("pow_grouped", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:639"),
+    ("mont_mul", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:504"),
 )
 
 
@@ -391,13 +700,21 @@ def main() -> int:
         f"{time.perf_counter() - t0} s (nvcc {build.nvcc_path()})",
         flush=True,
     )
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops.modmath import P as P_DEFAULT
+
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(2026)
+    rnd = random.Random(2026)
     records = kernel_phase(torch, N, F, BATCH, dev, True, rng)
     small = kernel_phase(torch, 100, 33, BATCH, dev, False, rng)
+    mod_records = modexp_phase(torch, P_DEFAULT, dev, True, rnd)
+    mod_small = modexp_phase(torch, P2, dev, False, rnd)
+    records.update(mod_records)
+    small.update(mod_small)
     bad = [
-        f"{name}@n={n_}"
-        for n_, recs in ((N, records), (100, small))
+        f"{name}@{where}"
+        for where, recs in (("default", records), ("small", small))
         for name, rec in recs.items()
         if not rec["equal"]
     ]
@@ -410,7 +727,11 @@ def main() -> int:
     if bad:
         print(f"chip_smoke: kernel disagrees with its plain version: {bad}", file=sys.stderr)
         return 1
-    launches = main_path(torch, N, BATCH, EPOCHS)
+    launches, cluster = main_path(torch, N, BATCH, EPOCHS)
+    dec_launches = decrypt_combine_phase(torch, cluster, dev)
+    counts = dict(launches["sites"])
+    counts["pow"] = dec_launches["sites"].get("pow", 0)
+    counts["mont_mul"] = mod_records["mont_mul"]["launches_per_call"]
     kernels = []
     for name, source, replaces in KERNELS:
         rec = records[name]
@@ -419,7 +740,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches["sites"].get(name, 0),
+            "launches": counts.get(name, 0),
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"],

@@ -1,18 +1,21 @@
-"""Count the instructions sm_90a issues for one SHA-256 compression.
+"""Count the instructions sm_90a issues for the kernels' unit of work.
 
-The bounds that ``chip_smoke.py`` reports for the SHA-256 kernels are
-operations over the card's INT32 rate, so they rest on a count of the
-32-bit operations in one compression.  This script takes that count
-from the machine code: it compiles two probe kernels against
-``csrc/sha256.cu`` with the build's flags, disassembles them with
-``cuobjdump -sass`` and prints, per kernel, the instructions by opcode
-and the integer ALU ones (everything but loads, stores, moves and
-control flow).
+The bounds that ``chip_smoke.py`` reports for the SHA-256 and modexp
+kernels are operations over the card's INT32 rate, so they rest on a
+count of the 32-bit operations in one SHA-256 compression and in one
+Montgomery product.  This script takes those counts from the machine
+code: it compiles probe kernels against the sources with the build's
+flags, disassembles them with ``cuobjdump -sass`` and prints, per
+kernel, the instructions by opcode and the integer ALU ones
+(everything but loads, stores, moves and control flow).
 
 - ``probe_compress``: one ``sha256_compress`` on state and words read
-  from memory, so nothing folds;
+  from memory, so nothing folds (``csrc/sha256.cu``);
 - ``probe_node``: one ``sha256_node`` (the two compressions of a
-  65-byte Merkle node message, whose padding words are constants).
+  65-byte Merkle node message, whose padding words are constants);
+- ``probe_mont``: one ``mont_prod`` (``csrc/modexp.cu``, 8 x 32-bit
+  CIOS with its conditional subtract) on operands and a modulus read
+  from memory.
 
 Run from the repository root on a machine with ``nvcc`` and
 ``cuobjdump`` (no card needed):
@@ -31,7 +34,8 @@ from typing import Dict
 
 from cleisthenes_tpu_torch.csrc.build import BUILD_DIR, NVCC_FLAGS, _CSRC, nvcc_path
 
-_PROBE = r"""
+_PROBES = {}
+_PROBES["sha256"] = r"""
 #include "sha256.cu"
 
 extern "C" __global__ void probe_compress(const uint32_t* __restrict__ in,
@@ -54,6 +58,24 @@ extern "C" __global__ void probe_node(const uint32_t* __restrict__ in,
   sha256_node(l, r, st);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = st[i];
+}
+"""
+
+_PROBES["modexp"] = r"""
+#include "modexp.cu"
+
+extern "C" __global__ void probe_mont(const uint32_t* __restrict__ in,
+                                      uint32_t* __restrict__ out) {
+  MontSpec s;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s.p[i] = in[16 + i];
+  s.pinv = in[24];
+  uint32_t a[8], b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) { a[i] = in[i]; b[i] = in[8 + i]; }
+  mont_prod(a, a, b, s);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = a[i];
 }
 """
 
@@ -90,17 +112,19 @@ def count(sass: str) -> Dict[str, Dict[str, int]]:
 def main() -> int:
     work = BUILD_DIR / "sass"
     work.mkdir(parents=True, exist_ok=True)
-    src = work / "probe.cu"
-    src.write_text(_PROBE)
-    cubin = work / "probe.cubin"
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    subprocess.run(
-        [nvcc_path(), *flags, "-cubin", "-I", str(_CSRC), "-o", str(cubin), str(src)],
-        check=True,
-    )
-    sass = subprocess.run(
-        [_cuobjdump(), "-sass", str(cubin)], check=True, capture_output=True, text=True
-    ).stdout
+    sass = ""
+    for name, probe in _PROBES.items():
+        src = work / f"probe_{name}.cu"
+        src.write_text(probe)
+        cubin = work / f"probe_{name}.cubin"
+        subprocess.run(
+            [nvcc_path(), *flags, "-cubin", "-I", str(_CSRC), "-o", str(cubin), str(src)],
+            check=True,
+        )
+        sass += subprocess.run(
+            [_cuobjdump(), "-sass", str(cubin)], check=True, capture_output=True, text=True
+        ).stdout
     (work / "probe.sass").write_text(sass)
     result = {}
     for fn, hist in count(sass).items():

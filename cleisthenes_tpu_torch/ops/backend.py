@@ -10,7 +10,9 @@ coin combine) sits behind ``BatchCrypto``/``ErasureCoder``, selected by
   ops/sha256_cuda.py) — in hand-written CUDA kernels on
   ``Config.device``.  On a CPU device the same wrappers run their plain
   PyTorch versions (the tests' setting); a CUDA device on a machine
-  without a GPU raises.  Modexp runs on the host engine in this slice.
+  without a GPU raises.  The BBA coin and decryption-share modexp runs
+  on the CUDA Montgomery kernels too (ops/modmath.py ``ModEngine('cuda')``
+  over ops/modexp_cuda.py), on the same device.
 - ``'cpu'``: numpy GF tables, native batched SHA-256 and the native
   Montgomery modexp kernel — the reference's ``'cpu'`` backend.
 """
@@ -140,6 +142,8 @@ class BatchCrypto:
         self.f = f
         self.k = k
         self.erasure = make_erasure_coder(backend, n, k, device=device)
+        # the card the modexp engine runs on (a 'cuda' backend's)
+        self.device = resolve_device(device) if backend == "cuda" else None
         # unlike the reference's 'cpp' backend (Merkle built from
         # engine_backend), 'cuda' hashes on the card too
         self.merkle = make_merkle(backend, device=device)
@@ -147,10 +151,7 @@ class BatchCrypto:
     @property
     def engine_backend(self) -> str:
         """Backend name for the modexp engine (tpke/coin)."""
-        # slice 1 only: 'cuda' runs modexp on the host Montgomery kernel,
-        # as the reference's 'cpp' backend does, until slice 2 ports the
-        # device modexp (reference ops/modmath.py K7-K10; ROADMAP.md)
-        return "cpu" if self.backend == "cuda" else self.backend
+        return self.backend
 
     def decode_recheck_batch(self, indices, shards):
         """RBC delivery check: decode + re-encode + Merkle roots

@@ -45,7 +45,7 @@ class CommonCoin:
     """One coin key set shared by all BBA instances of a network."""
 
     def __init__(
-        self, pub: ThresholdPublicKey, backend: str = "cpu"
+        self, pub: ThresholdPublicKey, backend: str = "cuda"
     ):
         self.pub = pub
         self.backend = backend

@@ -19,8 +19,11 @@ is 2 dual-exponentiations per share, batched across all N shares in
 one engine call (the "TPKE-share-verify ops/sec" BASELINE metric).
 
 This is the PyTorch port's copy of ``cleisthenes_tpu/ops/tpke.py``,
-cut to the calls the lockstep epoch (protocol/spmd.py) makes; every
-exponentiation runs on the host engine (ops/modmath.py) in this slice.
+cut to the calls the lockstep epoch (protocol/spmd.py) makes.  The
+batched share ops take the engine's ``backend`` and ``device``: with
+``'cuda'`` their exponentiations run on the card's Montgomery kernels
+(ops/modmath.py); single-shot ops (encrypt, deal, scalar combine) stay
+on the host engine, as in the reference.
 
 Security notes (documented, deliberate): hashed-ElGamal KEM + integrity
 tag in the random-oracle model; a production deployment would swap the
@@ -288,7 +291,8 @@ def deal(
 def issue_shares_batch(
     items: Sequence[tuple],
     group: GroupParams = DEFAULT_GROUP,
-    backend: str = "cpu",
+    backend: str = "cuda",
+    device="cuda",
 ) -> List[DhShare]:
     """Issue MANY shares in one batched exponentiation dispatch.
 
@@ -301,7 +305,7 @@ def issue_shares_batch(
     """
     if not items:
         return []
-    eng = get_engine_degraded(backend, group)
+    eng = get_engine_degraded(backend, group, device)
     q, g = group.q, group.g
     nbytes = group.nbytes
     # Exponentiations grouped by base — a wave shares a handful of
@@ -376,7 +380,8 @@ def combine_shares_batch(
     share_sets: Sequence[Sequence[DhShare]],
     threshold: int,
     group: GroupParams = DEFAULT_GROUP,
-    backend: str = "cpu",
+    backend: str = "cuda",
+    device="cuda",
 ) -> List[int]:
     """Lagrange-combine many independent share sets in ONE
     exponentiation dispatch (each set >= threshold verified shares;
@@ -384,7 +389,7 @@ def combine_shares_batch(
     ``combine_shares``, and shares its memo."""
     if not share_sets:
         return []
-    eng = get_engine_degraded(backend, group)
+    eng = get_engine_degraded(backend, group, device)
     results: List[Optional[int]] = [None] * len(share_sets)
     bases_flat: List[int] = []
     exps_flat: List[int] = []
@@ -491,9 +496,10 @@ def _cp_verdicts(gp, groups, idx_list, a) -> Dict[int, List[bool]]:
 def verify_and_combine_share_groups(
     groups: Sequence[tuple],
     threshold: int,
-    backend: str = "cpu",
+    backend: str = "cuda",
     combine_only_sets: Sequence[Sequence[DhShare]] = (),
     combine_only_group: Optional[GroupParams] = None,
+    device="cuda",
 ) -> Tuple[List[List[bool]], List[Optional[int]], List[int]]:
     """Verify every group's CP proofs AND Lagrange-combine each group's
     first ``threshold`` shares in ONE fused dual-exponentiation
@@ -539,7 +545,7 @@ def verify_and_combine_share_groups(
     values: Dict[int, Optional[int]] = {}
     co_values: List[int] = [0] * len(combine_only_sets)
     for gp, idx_list in by_gp.items():
-        eng = get_engine_degraded(backend, gp)
+        eng = get_engine_degraded(backend, gp, device)
         # verification duals first (2 per share), then combine terms
         # (threshold per set) ride the same dispatch as u2^0 = 1
         # dummy-factor duals
@@ -699,7 +705,7 @@ class Tpke:
     """Threshold decryption service for one key set."""
 
     def __init__(
-        self, pub: ThresholdPublicKey, backend: str = "cpu"
+        self, pub: ThresholdPublicKey, backend: str = "cuda"
     ):
         self.pub = pub
         self.backend = backend

@@ -37,11 +37,14 @@ What the lockstep path does NOT exercise: the wire codec, MAC
 authentication, asynchronous scheduling, and fault handling.
 
 This is the PyTorch port's copy of ``cleisthenes_tpu/protocol/spmd.py``,
-unchanged in logic.  With the default ``crypto_backend='cuda'`` the RBC
-wave runs in the port's CUDA kernels on ``device`` (RS encode, Merkle
-forest, the N^2 branch checks, the fused decode/re-encode/root
-recheck) and the BBA and decrypt waves' modexp on the host's native
-Montgomery kernel (the device modexp is slice 2, ROADMAP.md);
+unchanged in logic.  With the default ``crypto_backend='cuda'`` every
+wave's batched crypto runs in the port's CUDA kernels on ``device``:
+the RBC wave (RS encode, Merkle forest, the N^2 branch checks, the
+fused decode/re-encode/root recheck) and the BBA and decrypt waves'
+modexp (the fixed-base comb for share issue, the dual pow for the CP
+verify with its fused Lagrange combine, the generic pow for the
+unfused decrypt combine).  The propose wave's N TPKE encryptions stay
+on the host's native Montgomery kernel, as in the reference.
 tests/test_torch_lockstep.py holds its committed batches and round
 counts to the reference's.
 
@@ -219,6 +222,7 @@ class LockstepCluster:
         ids = self.ids
         group = self.tpke.group
         backend = self.crypto.engine_backend
+        device = self.crypto.device
         stats: Dict[str, float] = {}
         t_all = time.perf_counter()
 
@@ -358,7 +362,7 @@ class LockstepCluster:
             if dec:
                 items = items + dec_items
             shares = issue_shares_batch(
-                items, group=group, backend=backend
+                items, group=group, backend=backend, device=device
             )
             coin_issues += n_coin
             if dec:
@@ -384,6 +388,7 @@ class LockstepCluster:
                 backend=backend,
                 combine_only_sets=dec_subsets if dec else (),
                 combine_only_group=group,
+                device=device,
             )
             coin_verifies += sum(len(v) for v in verdicts)
             if not all(all(v) for v in verdicts):
@@ -432,7 +437,7 @@ class LockstepCluster:
         t0 = time.perf_counter()
         if not fuse_dec:
             dec_shares = issue_shares_batch(
-                dec_items, group=group, backend=backend
+                dec_items, group=group, backend=backend, device=device
             )
             dec_subsets.extend(
                 dec_shares[i * n : i * n + tpke_pub.threshold]
@@ -446,6 +451,7 @@ class LockstepCluster:
                 tpke_pub.threshold,
                 group=group,
                 backend=backend,
+                device=device,
             )
         decrypted: Dict[str, List[bytes]] = {}
         for i, (ct, sub) in enumerate(zip(cts, dec_subsets)):

@@ -58,7 +58,9 @@ def test_carried_keys_give_the_reference_coin_and_plaintext():
     t = carried[ids[0]].coin_pub.threshold
     # shares issued by each package from its own copy of the keys
     p_sh = tpke.issue_shares_batch(
-        [(carried[m].coin_share, base, ctx, None) for m in ids[:t]]
+        [(carried[m].coin_share, base, ctx, None) for m in ids[:t]],
+        backend="cuda",
+        device="cpu",
     )
     r_sh = ref_tpke.issue_shares_batch(
         [(ref[m].coin_share, base, ctx, None) for m in ids[-t:]]

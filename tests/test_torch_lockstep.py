@@ -12,12 +12,24 @@ come from ``secrets``."""
 import functools
 
 import pytest
+import torch
 
 from cleisthenes_tpu.protocol.spmd import LockstepCluster as RefCluster
 from cleisthenes_tpu_torch.protocol.spmd import LockstepCluster
 
 # (n, batch_size, transactions, epochs)
 SHAPES = {4: (64, 192, 3), 16: (256, 256, 1)}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain modexp versions are ~20 small int64 ops per Montgomery
+    product: intra-op threads only add contention (the suite runs
+    several workers on the same cores), so these tests run on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tx(i: int) -> bytes:
@@ -91,7 +103,8 @@ def test_lockstep_multi_epoch_dedup_and_order():
 def test_lockstep_stats_and_backend_routing():
     c = LockstepCluster(n=4, batch_size=16, key_seed=1, device="cpu")
     assert c.config.crypto_backend == "cuda"
-    assert c.crypto.engine_backend == "cpu"  # modexp: host until slice 2
+    assert c.crypto.engine_backend == "cuda"  # modexp on the card's kernels
+    assert c.crypto.device == torch.device("cpu")
     assert type(c.crypto.merkle).__name__ == "CudaMerkle"
     for i in range(16):
         c.submit(_tx(i))
