@@ -10,36 +10,53 @@ before printing any result.  It prints, in order:
 
 1. the card (``nvidia-smi`` name and power limit) and the seconds the
    kernels' build from ``cleisthenes_tpu_torch/csrc/*.cu`` took;
-2. the kernel phase: every entry point — RS encode, shared and
+2. the kernel phases: every RBC entry point — RS encode, shared and
    per-instance RS decode, ``sha256_rows``, the Merkle forest, the
    branch verify and the fused decode-recheck — on the card at the
    N=128/f=42 shapes of a real epoch and on an N=100/f=33 roster (whose
    forest pads leaves with the empty-leaf digest), each held byte for
    byte against its plain PyTorch version on the same inputs, with
-   samples held against ``hashlib``; then the modexp entry points — the
+   samples held against ``hashlib``; the modexp entry points — the
    comb (257 bases: g with 32,768 exponents, 256 bases with 256 each,
    one table per base as the engine sends them), the dual pow (22,016
    items, half of them Lagrange rows u2=1, e2=0), the generic pow
    (5,504 items) and the Montgomery product (16,384) — held against
    their plain versions and against Python's ``pow`` on a sample, in
-   the default group and, parity only, in a second 256-bit group.  At
-   N=128 each line carries the kernel's time (CUDA events, median of 20
-   calls after a warm-up), the plain version's (median of 3), launches
-   per call and the bound;
-3. the main path: ``LockstepCluster(n=128, batch_size=10000,
-   key_seed=77)`` with its defaults (the 'cuda' backend) commits
-   3 epochs of random 64-byte transactions; every transaction must
-   commit exactly once and the launch counts of the RBC entry points,
-   the comb (share issue) and the dual pow (CP verify with the fused
-   Lagrange combine) must rise during the epochs.  Each epoch's line
-   splits ``bba_s`` by the modexp engine's own ``stats``;
-4. the decrypt-combine phase: one more epoch of fresh transactions,
-   whose 128 decryption-share sets (43 shares each) are kept from its
-   fused verify/combine call and combined again through
-   ``combine_shares_batch(..., backend='cuda')`` — the unfused decrypt
-   branch, one generic-pow dispatch — must give the values the epoch's
-   fused dispatch left in the combine memo;
-5. the ``{"kernels": [...]}`` JSON line, the card line again, and last
+   the default group and, parity only, in a second 256-bit group; the
+   GF(2^16) codec (K11) at the N=512/f=170 epoch's shapes (B=512,
+   k=172, n=512, 64 symbols: encode, shared and per-instance decode,
+   with the 512-leaf forest and the D=9 branch verify) and, parity
+   only, at N=300/f=99, encode held also against the host
+   ``Cpu16ErasureCoder``; and the wide pow and dual pow (K12) in the
+   384-bit (batch 2048), 768-bit (512) and 2048-bit (128) groups, held
+   against their plain versions and Python's ``pow``.  The timed lines
+   carry the kernel's time (CUDA events, median of 20 calls after a
+   warm-up; 5 for the 2048-bit group), the plain version's (median of
+   3), launches per call and the bound (for a pow or dual pow, from the
+   fewest Montgomery products a fixed-window method needs for the
+   run's exponents);
+3. three paths through ``LockstepCluster`` with its defaults (the
+   'cuda' backend), each committing 3 epochs of random 64-byte
+   transactions, every one exactly once, with the launch counts set to
+   zero just before and read just after:
+   - N=128 (``n=128, batch_size=10000, key_seed=77``): the RBC entry
+     points, the comb (share issue) and the dual pow (CP verify with
+     the fused Lagrange combine) must launch.  Each epoch's line splits
+     ``bba_s`` by the modexp engine's own ``stats``;
+   - N=512 (``batch_size=4096``): the GF(2^16) codec's encode and
+     decode, the forest, the branch verify, the comb and the dual pow
+     must launch;
+   - GROUP384 (N=128, every exponentiation in the 384-bit group): the
+     engine must be the card's, the wide pow and dual pow must launch
+     and the 256-bit comb, dual pow and pow must not;
+4. the decrypt-combine phase, after the N=128 path: one more epoch of
+   fresh transactions, whose 128 decryption-share sets (43 shares each)
+   are kept from its fused verify/combine call and combined again
+   through ``combine_shares_batch(..., backend='cuda')`` — the unfused
+   decrypt branch, one generic-pow dispatch — must give the values the
+   epoch's fused dispatch left in the combine memo;
+5. the seconds the run took after the build, the ``{"kernels": [...]}``
+   JSON line (K1-K12), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere is zero: all of this is exact integer math.  Any
@@ -78,8 +95,39 @@ SHA_OPS_PER_NODE = 2675
 # by the same script in ``probe_mont``: 205 IMAD, 187 IADD3, 15 SHF,
 # 8 SEL and the rest.
 MONT_OPS = 429
+# 32-bit instructions of one wide Montgomery product (csrc/modexp_wide.cu
+# ``wide_prod``) per family word count, from the same script's
+# ``wide_mont_ops`` line: alu(probe_wide_prod) + (NW - 1) * alu(probe_wide_step).
+WIDE_MONT_OPS = {12: 1013, 25: 4068, 66: 26987}
 # the second 256-bit safe prime of the repository's group tests
 P2 = 0x93A40B764F1F5026ADA7C38AA3EF4EE81E01E89F9FE80837B1E370913DA99F13
+# the wide groups of bench.py's wide-group section, with its batches:
+# the 384-bit GROUP384 prime, RFC 2409 Oakley group 1 (768-bit), RFC 3526
+# MODP group 14 (2048-bit)
+P384 = int(
+    "F7E12F10702F5E910CBEC741E84E2608D29D655C81BF7BF093B38ED4267537C9"
+    "249C8FE3A20A0C68153E6DAA5F9A23F3",
+    16,
+)
+OAKLEY1 = int(
+    "FFFFFFFFFFFFFFFFC90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74"
+    "020BBEA63B139B22514A08798E3404DDEF9519B3CD3A431B302B0A6DF25F1437"
+    "4FE1356D6D51C245E485B576625E7EC6F44C42E9A63A3620FFFFFFFFFFFFFFFF",
+    16,
+)
+MODP14 = int(
+    "FFFFFFFFFFFFFFFFC90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74"
+    "020BBEA63B139B22514A08798E3404DDEF9519B3CD3A431B302B0A6DF25F1437"
+    "4FE1356D6D51C245E485B576625E7EC6F44C42E9A637ED6B0BFF5CB6F406B7ED"
+    "EE386BFB5A899FA5AE9F24117C4B1FE649286651ECE45B3DC2007CB8A163BF05"
+    "98DA48361C55D39A69163FA8FD24CF5F83655D23DCA3AD961C62F356208552BB"
+    "9ED529077096966D670C354E4ABC9804F1746C08CA18217C32905E462E36CE3B"
+    "E39E772C180E86039B2783A2EC07A28FB5C55DF06F4C52C9DE2BCBF695581718"
+    "3995497CEA956AE515D2261898FA051015728E5A8AACAA68FFFFFFFFFFFFFFFF",
+    16,
+)
+# (bits, p, batch)
+WIDE_GROUPS = ((384, P384, 2048), (768, OAKLEY1, 512), (2048, MODP14, 128))
 
 N, F, BATCH, EPOCHS, KEY_SEED, TX_BYTES = 128, 42, 10000, 3, 77, 64
 
@@ -151,35 +199,55 @@ def payload_len(n: int, batch: int) -> int:
 
 def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> dict:
     """Every entry point at one roster's epoch shapes, on ``dev``, held
-    against its plain version; returns {entry point: record}."""
+    against its plain version; returns {entry point: record}.  Past 256
+    validators the codec is GF(2^16) (K11 ``rs16_*`` on uint16 symbols,
+    no fused decode-recheck); below, GF(2^8) (K1-K3)."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
-    from cleisthenes_tpu_torch.ops import gf256
+    from cleisthenes_tpu_torch.ops import gf256, gf65536
+    from cleisthenes_tpu_torch.ops import rs16_cuda as rs16
     from cleisthenes_tpu_torch.ops import rs_cuda as rs
     from cleisthenes_tpu_torch.ops import sha256_cuda as sh
     from cleisthenes_tpu_torch.ops.payload import split_payload
+    from cleisthenes_tpu_torch.ops.rs16 import Cpu16ErasureCoder
 
     k = n - 2 * f
     b = n
     L = split_payload(bytes(payload_len(n, batch)), k).shape[1]
     p = sh.next_pow2(n)
     depth = p.bit_length() - 1
+    wide = n > 256
+    field = gf65536 if wide else gf256
+    # symbol bytes, int32 ops per multiply-accumulate (csrc/gf256.cu: table
+    # product and XOR; csrc/gf65536.cu: log sum, two minimums, XOR)
+    sym, mac_ops = (2, 4) if wide else (1, 2)
+    S = L // sym
+    prefix = "rs16_" if wide else "rs_"
+    encode, decode, apply_plain = (
+        (rs16.rs16_encode, rs16.rs16_decode, rs16.gf65536_apply_plain) if wide
+        else (rs.rs_encode, rs.rs_decode, rs.gf256_apply_plain)
+    )
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     data_np = rng.integers(0, 256, (b, k, L), dtype="uint8")
-    data = put(data_np)
-    enc = put(gf256.systematic_rs_matrix(n, k))
-    full = rs.rs_encode(enc, data)
+    data = put(data_np.view(np.uint16) if wide else data_np)
+    a_np = field.systematic_rs_matrix(n, k)
+    enc = put(a_np)
+    full_s = encode(enc, data)  # (b, n, S) symbols
+    full = full_s.view(torch.uint8) if wide else full_s  # (b, n, L) bytes
     shared_idx = sorted(rng.choice(n, k, replace=False).tolist())
-    a_np = gf256.systematic_rs_matrix(n, k)
-    dec = put(gf256.gf_mat_inv(a_np[shared_idx]))
-    shards = full[:, shared_idx].contiguous()
+    dec = put(field.gf_mat_inv(a_np[shared_idx]))
+    # survivors picked on the host (CUDA has no uint16 indexing kernel)
+    full_np = full_s.cpu().numpy()
+    shards = put(full_np[:, shared_idx])
+    # a distinct erasure pattern per instance, so that a kernel reading
+    # another instance's matrix cannot pass
     pats = [sorted(rng.choice(n, k, replace=False).tolist()) for _ in range(b)]
-    decs = put(np.stack([gf256.gf_mat_inv(a_np[q]) for q in pats]))
-    shards_pi = torch.stack([full[i, q] for i, q in enumerate(pats)]).contiguous()
+    decs = put(np.stack([field.gf_mat_inv(a_np[q]) for q in pats]))
+    shards_pi = put(np.stack([full_np[i, q] for i, q in enumerate(pats)]))
     leaf_rows = full.reshape(b * n, L)
     forest = sh.build_forest(full)
     roots = forest[:, -1]
@@ -205,20 +273,20 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
 
     L1 = L + 1
     cases = {
-        "rs_encode": (
-            lambda: rs.rs_encode(enc, data),
-            lambda: rs.gf256_apply_plain(enc, data),
-            b * k * L + n * k + b * n * L, 2 * b * (n - k) * k * L,
+        prefix + "encode": (
+            lambda: encode(enc, data),
+            lambda: apply_plain(enc, data),
+            b * k * L + sym * n * k + b * n * L, mac_ops * b * (n - k) * k * S,
         ),
-        "rs_decode": (
-            lambda: rs.rs_decode(dec, shards),
-            lambda: rs.gf256_apply_plain(dec, shards),
-            2 * b * k * L + k * k, 2 * b * k * k * L,
+        prefix + "decode": (
+            lambda: decode(dec, shards),
+            lambda: apply_plain(dec, shards),
+            2 * b * k * L + sym * k * k, mac_ops * b * k * k * S,
         ),
-        "rs_decode_per_instance": (
-            lambda: rs.rs_decode(decs, shards_pi),
-            lambda: rs.gf256_apply_plain(decs, shards_pi),
-            2 * b * k * L + b * k * k, 2 * b * k * k * L,
+        prefix + "decode_per_instance": (
+            lambda: decode(decs, shards_pi),
+            lambda: apply_plain(decs, shards_pi),
+            2 * b * k * L + sym * b * k * k, mac_ops * b * k * k * S,
         ),
         "sha256_rows": (
             lambda: sh.sha256_rows(leaf_rows, 0),
@@ -237,14 +305,15 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
             b * n * (32 + L + depth * 32 + 8 + 1),
             b * n * (blocks(L1) * SHA_OPS_PER_BLOCK + depth * SHA_OPS_PER_NODE),
         ),
-        "decode_recheck": (
+    }
+    if not wide:
+        cases["decode_recheck"] = (
             lambda: rs.decode_recheck(dec, enc, shards),
             lambda: rs.decode_recheck_plain(dec, enc, shards),
             b * k * L + k * k + n * k + b * k * L + b * 32,
             2 * b * k * k * L + 2 * b * (n - k) * k * L
             + b * (n * blocks(L1) * SHA_OPS_PER_BLOCK + (p - 1) * SHA_OPS_PER_NODE),
-        ),
-    }
+        )
     out = {}
     for name, (kern, plain, nbytes, ops) in cases.items():
         before = sum(COUNTS.kernels.values())
@@ -253,8 +322,9 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
             torch.cuda.synchronize()
         per_call = sum(COUNTS.kernels.values()) - before
         want = plain()
-        got_t = got if isinstance(got, tuple) else (got,)
-        want_t = want if isinstance(want, tuple) else (want,)
+        # compared as int32: CUDA has no uint16 comparison kernels
+        got_t = tuple(g.to(torch.int32) for g in (got if isinstance(got, tuple) else (got,)))
+        want_t = tuple(w.to(torch.int32) for w in (want if isinstance(want, tuple) else (want,)))
         equal = all(torch.equal(g, w) for g, w in zip(got_t, want_t))
         if all(g.shape == w.shape for g, w in zip(got_t, want_t)):
             err = max(
@@ -265,8 +335,13 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
             err = float("inf")
         rec = {"equal": equal, "max_abs_err": float(err), "launches_per_call": per_call}
         # independent checks beyond the plain version
-        if name in ("rs_decode", "rs_decode_per_instance"):
-            rec["equal"] &= torch.equal(got, data)
+        if name.endswith(("_decode", "_decode_per_instance")):
+            rec["equal"] &= torch.equal(got_t[0], data.to(torch.int32))
+        elif name == "rs16_encode":
+            host = Cpu16ErasureCoder(n, k)
+            full_np = full.cpu().numpy()
+            for i in (0, b - 1):
+                rec["equal"] &= bool(np.array_equal(host.encode(data_np[i]), full_np[i]))
         elif name == "sha256_rows":
             rows = leaf_rows.cpu().numpy()
             dig = got.cpu().numpy()
@@ -298,35 +373,71 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
     return out
 
 
-def _bits(np, e):
-    """(B, 32) big-endian exponent bytes -> (B, 256) bits, MSB first."""
-    return np.unpackbits(e, axis=1)
+def _digits(np, exps, w: int):
+    """(B, nb) big-endian exponent bytes -> (B, ceil(8 nb / w)) digits in
+    base 2^w, most significant first."""
+    bits = np.unpackbits(exps, axis=1)
+    bits = np.pad(bits, ((0, 0), ((-bits.shape[1]) % w, 0)))
+    return bits.reshape(bits.shape[0], -1, w) @ (1 << np.arange(w - 1, -1, -1))
 
 
-def _bitlen_pop(np, bits):
-    pop = bits.sum(1).astype(np.int64)
-    first = bits.argmax(1)
-    return np.where(pop > 0, 256 - first, 0), pop
+def _tail(np, nz):
+    """Per row: digit positions from the first nonzero one to the end."""
+    return np.where(nz.any(1), nz.shape[1] - nz.argmax(1), 0)
+
+
+def least_pow(np, exps):
+    """Per row, the fewest Montgomery products of b^e by a fixed w-bit
+    window, w = 1..7 (w = 1 is the binary method): into the domain, the
+    table b^2..b^(2^w - 1), w squarings per digit after the top one, a
+    multiply per further nonzero digit, out of the domain; none for
+    e = 0."""
+    def window(w):
+        nz = _digits(np, exps, w) != 0
+        nd = _tail(np, nz)
+        return np.where(nd > 0, 2 + (2**w - 2) + w * (nd - 1) + nz.sum(1) - 1, 0)
+
+    return np.minimum.reduce([window(w) for w in range(1, 8)])
+
+
+def least_dual(np, e1, e2):
+    """Per row, the fewest Montgomery products of u1^e1 u2^e2 by w-bit
+    windows over both exponents at once (one shared chain of squarings):
+    a joint table of every u1^i u2^j (w = 1..3; w = 1 is Shamir's trick)
+    and a multiply per position where either digit is nonzero, or a
+    table per base (w = 1..7) and a multiply per nonzero digit of each;
+    both bases into the domain, the result out.  A row whose other
+    exponent is 0 is one pow (``least_pow``)."""
+    def window(w, joint):
+        n1, n2 = _digits(np, e1, w) != 0, _digits(np, e2, w) != 0
+        nd = _tail(np, n1 | n2)
+        if joint:
+            table, mults = 2 * (2**w - 2) + (2**w - 1) ** 2, (n1 | n2).sum(1)
+        else:
+            table, mults = 2 * (2**w - 2), n1.sum(1) + n2.sum(1)
+        return np.where(nd > 0, 3 + table + w * (nd - 1) + mults - 1, 0)
+
+    big = np.iinfo(np.int64).max
+    return np.minimum.reduce(
+        [window(w, True) for w in range(1, 4)]
+        + [window(w, False) for w in range(1, 8)]
+        + [np.where(e2.any(1), big, least_pow(np, e1)),
+           np.where(e1.any(1), big, least_pow(np, e2))]
+    )
 
 
 def pow_products(np, base, exp) -> int:
-    """Montgomery products the binary method needs for these inputs:
-    into the domain (a second product folds a 33rd byte), a squaring per
-    exponent bit below the top one, a multiply per further set bit, out
-    of the domain."""
-    blen, pop = _bitlen_pop(np, _bits(np, exp))
-    fold = (base[:, 32] != 0).astype(np.int64)
-    return int((np.maximum(blen - 1, 0) + np.maximum(pop - 1, 0) + 2 + fold).sum())
+    """Montgomery products K7's function needs for these inputs:
+    ``least_pow``, plus one where a 33rd byte folds into the domain."""
+    n = least_pow(np, exp)
+    return int((n + np.where(n > 0, base[:, 32] != 0, 0)).sum())
 
 
 def dual_products(np, u1, e1, u2, e2) -> int:
-    """Shamir's trick: both bases into the domain, their product, a
-    squaring per bit below the top one of either exponent, a multiply
-    per further position where either exponent has a bit, out."""
-    both = _bits(np, e1) | _bits(np, e2)
-    blen, pop = _bitlen_pop(np, both)
+    """... and K8's: ``least_dual``, plus a product per 33rd-byte fold."""
+    n = least_dual(np, e1, e2)
     fold = (u1[:, 32] != 0).astype(np.int64) + (u2[:, 32] != 0)
-    return int((np.maximum(blen - 1, 0) + np.maximum(pop - 1, 0) + 4 + fold).sum())
+    return int((n + np.where(n > 0, fold, 0)).sum())
 
 
 def comb_products(np, bases, exps) -> int:
@@ -473,6 +584,83 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
     return out
 
 
+def wide_phase(torch, dev, rnd) -> dict:
+    """The K12 entry points at the shapes of ``bench.py``'s wide-group
+    section: the 384-bit GROUP384 prime at batch 2048, the 768-bit RFC 2409
+    Oakley group 1 at 512 and the 2048-bit RFC 3526 MODP-14 group at 128.
+    Pow and dual pow in each, held against their plain versions and
+    against Python's ``pow`` on a sample, timed; returns
+    {"<entry point>@<bits>": record}."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+
+    out = {}
+    for bits, p, batch in WIDE_GROUPS:
+        vb = mx.family_bytes(p)
+        spec = mx.wide_spec(p, vb)
+        q = (p - 1) // 2
+        half = batch // 2
+        u1_i = [0, 1, p - 1] + [rnd.randrange(p) for _ in range(batch - 3)]
+        e1_i = [0, 1, q] + [rnd.randrange(q) for _ in range(batch - 3)]
+        u2_i = [rnd.randrange(p) for _ in range(half)] + [1] * (batch - half)
+        e2_i = [rnd.randrange(q) for _ in range(half)] + [0] * (batch - half)
+
+        def le(xs, _vb=vb):
+            return np.frombuffer(b"".join(x.to_bytes(_vb, "little") for x in xs), np.uint8).reshape(-1, _vb)
+
+        def be(xs, _vb=vb):
+            return np.frombuffer(b"".join(x.to_bytes(_vb, "big") for x in xs), np.uint8).reshape(-1, _vb)
+
+        arrs = [le(u1_i), be(e1_i), le(u2_i), be(e2_i)]
+        u1, e1, u2, e2 = (torch.from_numpy(a.copy()).to(dev) for a in arrs)
+        idx = list(range(3)) + list(range(batch - 3, batch)) + rnd.sample(range(3, batch - 3), 26)
+        cases = {
+            "wide_pow_fused": (
+                lambda: mx.wide_pow_fused(u1, e1, spec),
+                lambda: mx.pow_fused_plain(u1, e1, spec),
+                lambda res: all(res[i] == pow(u1_i[i], e1_i[i], p) for i in idx),
+                batch * 3 * vb, int(least_pow(np, arrs[1]).sum()),
+            ),
+            "wide_dual_pow_fused": (
+                lambda: mx.wide_dual_pow_fused(u1, e1, u2, e2, spec),
+                lambda: mx.dual_pow_fused_plain(u1, e1, u2, e2, spec),
+                lambda res: all(
+                    res[i] == pow(u1_i[i], e1_i[i], p) * pow(u2_i[i], e2_i[i], p) % p
+                    for i in idx
+                ),
+                batch * 5 * vb, int(least_dual(np, arrs[1], arrs[3]).sum()),
+            ),
+        }
+        for name, (kern, plain, sample_ok, nbytes, products) in cases.items():
+            before = sum(COUNTS.kernels.values())
+            got = kern()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            per_call = sum(COUNTS.kernels.values()) - before
+            want = plain()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            res = [int.from_bytes(r.tobytes(), "little") for r in got.cpu().numpy()]
+            rec = {
+                "equal": torch.equal(got, want) and sample_ok(res),
+                "max_abs_err": float(err),
+                "launches_per_call": per_call,
+                "kernel_ms": time_ms(torch, kern, 5 if bits == 2048 else 20),
+                "plain_ms": time_ms(torch, plain, 3),
+            }
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, products * WIDE_MONT_OPS[spec.nw])
+            print(
+                f"kernel {name} bits={bits} B={batch} words={spec.nw}: equal={rec['equal']} "
+                f"launches_per_call={per_call} kernel_ms={rec['kernel_ms']} "
+                f"plain_ms={rec['plain_ms']} bound_ms={rec['bound_ms']} "
+                f"({rec['bound_by']}, {products} products)",
+                flush=True,
+            )
+            out[f"{name}@{bits}"] = rec
+    return out
+
+
 def engine_split(engines, before) -> dict:
     """Splits ``bba_s`` by the 'cuda' modexp engines' own ``stats``
     since ``before``: seconds inside their batch calls (``engine_s``),
@@ -490,10 +678,14 @@ def engine_split(engines, before) -> dict:
     return out
 
 
-def main_path(torch, n: int, batch: int, epochs: int, **overrides):
-    """The port's main path through its user entry point, with its
-    defaults unless ``overrides`` (a CPU rehearsal passes
-    device='cpu'); returns (launch counts, the cluster)."""
+def main_path(torch, n: int, batch: int, epochs: int, waves: str, sites,
+              absent=(), **overrides):
+    """One path through the port's user entry point, with its defaults
+    unless ``overrides`` (``group``; a CPU rehearsal passes
+    device='cpu'): every transaction must commit once, every entry point
+    of ``sites`` must launch and none of ``absent``, and on the card
+    every modexp engine must be the device's (no fallback to the host).
+    Returns (launch counts, the cluster)."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
@@ -507,7 +699,9 @@ def main_path(torch, n: int, batch: int, epochs: int, **overrides):
     print(
         f"main_path: LockstepCluster(n={n}, batch_size={batch}, "
         f"key_seed={KEY_SEED}) backend={cluster.config.crypto_backend} "
-        f"device={cluster.crypto.erasure.device} f={cluster.config.f} "
+        f"device={cluster.config.device} f={cluster.config.f} "
+        f"group_bits={cluster.tpke.group.p.bit_length()} "
+        f"codec={type(cluster.crypto.erasure).__name__} "
         f"setup_s={time.perf_counter() - t0}",
         flush=True,
     )
@@ -516,11 +710,13 @@ def main_path(torch, n: int, batch: int, epochs: int, **overrides):
     submitted = [row.tobytes() for row in txs]
     for tx in submitted:
         cluster.submit(tx)
-    on_card = cluster.crypto.erasure.device.type == "cuda"
+    on_card = torch.device(cluster.config.device).type == "cuda"
     engines = [
         get_engine_degraded(cluster.crypto.engine_backend, gp, cluster.crypto.device)
         for gp in {cluster.tpke.group, cluster.coin.group}
     ]
+    if on_card and any(eng.backend != "cuda" for eng in engines):
+        raise AssertionError("a modexp engine of the path is not the card's")
     COUNTS.reset()
     epoch_s = []
     for e in range(epochs):
@@ -547,26 +743,19 @@ def main_path(torch, n: int, batch: int, epochs: int, **overrides):
             f"committed {len(committed)} txs ({len(set(committed))} distinct)"
             f" of {len(submitted)} submitted"
         )
-    for site in ("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
-                 "pow_grouped", "dual_pow"):
+    for site in sites:
         if on_card and launches["sites"].get(site, 0) <= 0:
             raise AssertionError(f"main path never launched {site}: {launches}")
+    for site in absent:
+        if launches["sites"].get(site, 0):
+            raise AssertionError(f"main path launched {site}: {launches}")
     print(
         f"main_path: txs={len(submitted)} committed_once={len(committed)} "
         f"epochs={epochs} epoch_p50_s={statistics.median(epoch_s)} "
         f"tx_per_s={len(committed) / sum(epoch_s)}",
         flush=True,
     )
-    print(
-        "waves: propose (N TPKE encryptions) on the host's native Montgomery "
-        f"kernel ({native}); RBC (RS encode, Merkle forest, N^2 branch "
-        "verify, fused decode-recheck) on the port's CUDA kernels; BBA coin "
-        "and decryption-share issue on the CUDA comb (pow_grouped), CP "
-        "verify with the fused Lagrange and decrypt combines on the CUDA "
-        "dual pow (dual_pow); decrypt tail (memo hits, tag checks) and "
-        "commit on the host",
-        flush=True,
-    )
+    print("waves: " + waves, flush=True)
     print("launches_main_path " + json.dumps(launches, sort_keys=True), flush=True)
     return launches, cluster
 
@@ -661,7 +850,8 @@ KERNELS = (
     # (entry point, source, TPU kernel replaced); the launch counts of
     # pow come from the decrypt-combine phase, of mont_mul (whose only
     # callers are the tests) from its untimed call in the kernel phase,
-    # of the rest from the main path
+    # of gf65536_apply from the N=512 path, of the wide kernels from the
+    # GROUP384 path, of the rest from the N=128 path
     ("rs_encode", "cleisthenes_tpu_torch/csrc/gf256.cu", "cleisthenes_tpu/ops/rs_xla.py:59"),
     ("rs_decode", "cleisthenes_tpu_torch/csrc/gf256.cu", "cleisthenes_tpu/ops/rs_xla.py:65"),
     ("decode_recheck", "cleisthenes_tpu_torch/ops/rs_cuda.py", "cleisthenes_tpu/ops/rs_xla.py:80"),
@@ -672,6 +862,35 @@ KERNELS = (
     ("dual_pow", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:592"),
     ("pow_grouped", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:639"),
     ("mont_mul", "cleisthenes_tpu_torch/csrc/modexp.cu", "cleisthenes_tpu/ops/modmath.py:504"),
+    ("gf65536_apply", "cleisthenes_tpu_torch/csrc/gf65536.cu",
+     "cleisthenes_tpu/ops/rs16_xla_kernels.py:47"),
+    ("wide_pow_fused", "cleisthenes_tpu_torch/csrc/modexp_wide.cu",
+     "cleisthenes_tpu/ops/modmath.py:351"),
+    ("wide_dual_pow_fused", "cleisthenes_tpu_torch/csrc/modexp_wide.cu",
+     "cleisthenes_tpu/ops/modmath.py:378"),
+)
+
+WAVES_128 = (
+    "propose (N TPKE encryptions) on the host's native Montgomery kernel; "
+    "RBC (RS encode, Merkle forest, N^2 branch verify, fused decode-recheck) "
+    "on the port's CUDA kernels; BBA coin and decryption-share issue on the "
+    "CUDA comb (pow_grouped), CP verify with the fused Lagrange and decrypt "
+    "combines on the CUDA dual pow (dual_pow); decrypt tail (memo hits, tag "
+    "checks) and commit on the host"
+)
+WAVES_512 = (
+    "propose on the host's native Montgomery kernel; RBC on the GF(2^16) "
+    "codec (rs16_encode, and delivery as rs16_decode + rs16_encode + Merkle "
+    "forest in three calls), the 512-leaf forest and the N^2 branch verify "
+    "(D=9) on the port's CUDA kernels; BBA and decryption shares on the comb "
+    "and the dual pow; decrypt tail and commit on the host"
+)
+WAVES_384 = (
+    "propose in GROUP384 on the host (Python pow: the native kernel is "
+    "256-bit only); RBC on the GF(2^8) kernels; BBA coin and decryption-share "
+    "issue on the 384-bit wide pow (wide_pow, a grouped call flattened: the "
+    "comb is 256-bit only), CP verify and the fused combines on the wide dual "
+    "pow (wide_dual_pow); decrypt tail and commit on the host"
 )
 
 
@@ -700,38 +919,68 @@ def main() -> int:
         f"{time.perf_counter() - t0} s (nvcc {build.nvcc_path()})",
         flush=True,
     )
-    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops.modmath import GROUP384
     from cleisthenes_tpu_torch.ops.modmath import P as P_DEFAULT
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(2026)
     rnd = random.Random(2026)
-    records = kernel_phase(torch, N, F, BATCH, dev, True, rng)
-    small = kernel_phase(torch, 100, 33, BATCH, dev, False, rng)
-    mod_records = modexp_phase(torch, P_DEFAULT, dev, True, rnd)
-    mod_small = modexp_phase(torch, P2, dev, False, rnd)
-    records.update(mod_records)
-    small.update(mod_small)
+    phases = {
+        "n128": kernel_phase(torch, N, F, BATCH, dev, True, rng),
+        "n100": kernel_phase(torch, 100, 33, BATCH, dev, False, rng),
+        "modexp": modexp_phase(torch, P_DEFAULT, dev, True, rnd),
+        "modexp_p2": modexp_phase(torch, P2, dev, False, rnd),
+        "n512": kernel_phase(torch, 512, 170, 4096, dev, True, rng),
+        "n300": kernel_phase(torch, 300, 99, 4096, dev, False, rng),
+        "wide": wide_phase(torch, dev, rnd),
+    }
     bad = [
         f"{name}@{where}"
-        for where, recs in (("default", records), ("small", small))
+        for where, recs in phases.items()
         for name, rec in recs.items()
         if not rec["equal"]
     ]
     print(
         "parity " + json.dumps(
-            {name: rec["equal"] and small[name]["equal"] for name, rec in records.items()}
+            {f"{name}@{where}": rec["equal"] for where, recs in phases.items()
+             for name, rec in recs.items()}
         ),
         flush=True,
     )
     if bad:
         print(f"chip_smoke: kernel disagrees with its plain version: {bad}", file=sys.stderr)
         return 1
-    launches, cluster = main_path(torch, N, BATCH, EPOCHS)
+    print(f"kernel phases done at {time.perf_counter() - t_start} s", flush=True)
+    launches, cluster = main_path(
+        torch, N, BATCH, EPOCHS, WAVES_128,
+        sites=("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
+               "pow_grouped", "dual_pow"),
+    )
     dec_launches = decrypt_combine_phase(torch, cluster, dev)
+    del cluster
+    launches_512, _ = main_path(
+        torch, 512, 4096, EPOCHS, WAVES_512,
+        sites=("rs16_encode", "rs16_decode", "merkle_forest", "merkle_verify",
+               "pow_grouped", "dual_pow"),
+    )
+    launches_384, _ = main_path(
+        torch, N, BATCH, EPOCHS, WAVES_384, group=GROUP384,
+        sites=("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
+               "wide_pow", "wide_dual_pow"),
+        absent=("pow_grouped", "dual_pow", "pow"),
+    )
     counts = dict(launches["sites"])
     counts["pow"] = dec_launches["sites"].get("pow", 0)
-    counts["mont_mul"] = mod_records["mont_mul"]["launches_per_call"]
+    counts["mont_mul"] = phases["modexp"]["mont_mul"]["launches_per_call"]
+    counts["gf65536_apply"] = launches_512["kernels"].get("gf65536_apply", 0)
+    for name in ("wide_pow_fused", "wide_dual_pow_fused"):
+        counts[name] = launches_384["kernels"].get(name, 0)
+    records = dict(phases["n128"])
+    records.update(phases["modexp"])
+    records["gf65536_apply"] = phases["n512"]["rs16_encode"]
+    for name in ("wide_pow_fused", "wide_dual_pow_fused"):
+        records[name] = phases["wide"][f"{name}@384"]
     kernels = []
     for name, source, replaces in KERNELS:
         rec = records[name]
@@ -752,6 +1001,7 @@ def main() -> int:
     if missing:
         print(f"chip_smoke: main path never launched {missing}", file=sys.stderr)
         return 1
+    print(f"total_s={time.perf_counter() - t_start} (after the build)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({

@@ -6,14 +6,15 @@ package imports ``torch``, numpy and the standard library only, and
 mirrors the reference's layout (``config``, ``ops/``, ``core/``,
 ``protocol/``) so each counterpart is found by name.
 
-This slice runs the lockstep epoch (``protocol.spmd.LockstepCluster``)
-with the RBC data plane — Reed-Solomon encode, Merkle forest, the N^2
-ECHO branch checks and the fused decode/re-encode/root recheck — in
-hand-written CUDA kernels (``csrc/``), and BBA/decryption modexp on the
-host's native Montgomery kernel (the device modexp is slice 2,
-ROADMAP.md).  The defaults put the work on the card
-(``Config.crypto_backend='cuda'``, ``Config.device='cuda'``); on a
-machine without a GPU they raise instead of running on the CPU.
+It runs the lockstep epoch (``protocol.spmd.LockstepCluster``) with
+every batched wave in hand-written CUDA kernels (``csrc/``): the RBC
+data plane — Reed-Solomon encode (GF(2^8), or GF(2^16) past 256
+validators), Merkle forest, the N^2 ECHO branch checks and the
+decode/re-encode/root recheck — and the BBA coin and decryption-share
+modexp (256-bit groups, and the wide families up to 2112 bits).  The
+defaults put the work on the card (``Config.crypto_backend='cuda'``,
+``Config.device='cuda'``); on a machine without a GPU they raise
+instead of running on the CPU.
 """
 
 from cleisthenes_tpu_torch.config import Config

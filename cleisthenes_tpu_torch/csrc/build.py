@@ -13,13 +13,16 @@ failed launch raises.
 Each C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; ``check()`` turns a nonzero code into an
 exception.  ``COUNTS`` tallies every launch by kernel (``gf256_apply``,
-``sha256_rows``, ``merkle_verify``, ``mont_mul``, ``pow_fused``,
-``dual_pow_fused``, ``comb_table``, ``comb_apply``) and under each entry
+``gf65536_apply``, ``sha256_rows``, ``merkle_verify``, ``mont_mul``,
+``pow_fused``, ``dual_pow_fused``, ``comb_table``, ``comb_apply``,
+``wide_pow_fused``, ``wide_dual_pow_fused``) and under each entry
 point it was made through — one per TPU kernel it replaces:
 ``rs_encode`` (K1), ``rs_decode`` (K2), ``decode_recheck`` (K3),
 ``sha256_rows`` (K4), ``merkle_forest`` (K5), ``merkle_verify`` (K6),
 ``pow`` (K7), ``dual_pow`` (K8), ``pow_grouped`` (K9, two launches a
-call: table build and accumulation), ``mont_mul`` (K10).  A launch
+call: table build and accumulation), ``mont_mul`` (K10),
+``rs16_encode`` and ``rs16_decode`` (K11), ``wide_pow`` and
+``wide_dual_pow`` (K12).  A launch
 inside the fused K3 counts under K3 and under the entry point it shares
 (the re-encode under ``rs_encode`` too, a forest level under
 ``merkle_forest`` and ``sha256_rows``).
@@ -52,6 +55,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "gf256": {
         "gf256_apply": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "gf65536": {
+        "gf65536_apply": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
     "sha256": {
         "sha256_rows": [_P, _LL, _LL, _LL, _LL, _LL, _I, _P, _LL, _LL, _P, _P],
         "merkle_verify": [_P, _P, _LL, _P, _I, _P, _P, _LL, _P],
@@ -62,6 +68,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "dual_pow_fused": [_P, _P, _P, _P, _P, _LL, _P, _P],
         "comb_table": [_P, _P, _LL, _P, _P],
         "comb_apply": [_P, _P, _P, _P, _LL, _P, _P],
+    },
+    "modexp_wide": {
+        "wide_pow_fused": [_P, _P, _P, _LL, _I, _P, _P],
+        "wide_dual_pow_fused": [_P, _P, _P, _P, _P, _LL, _I, _P, _P],
     },
 }
 

@@ -5,7 +5,8 @@ crypto (RS encode/decode, Merkle forests and proofs, TPKE share ops,
 coin combine) sits behind ``BatchCrypto``/``ErasureCoder``, selected by
 ``Config.crypto_backend``:
 
-- ``'cuda'``: the RBC data plane — RS codec (ops/rs_cuda.py) and
+- ``'cuda'``: the RBC data plane — RS codec (ops/rs_cuda.py; past
+  256 validators the GF(2^16) codec of ops/rs16.py) and
   Merkle forest / branch checks (ops/merkle.py ``CudaMerkle`` over
   ops/sha256_cuda.py) — in hand-written CUDA kernels on
   ``Config.device``.  On a CPU device the same wrappers run their plain
@@ -46,7 +47,8 @@ def resolve_device(device) -> torch.device:
 
 
 class ErasureCoder(abc.ABC):
-    """Systematic (n, k) Reed-Solomon codec over GF(2^8).
+    """Systematic (n, k) Reed-Solomon codec over GF(2^8) (GF(2^16) for
+    the ops/rs16.py coders, whose ``MAX_N`` is 65536).
 
     Shards are byte matrices: ``data`` is (k, L), full shard sets are
     (n, L) with rows 0..k-1 the data shards and rows k..n-1 parity
@@ -113,11 +115,18 @@ def make_erasure_coder(
     backend: str, n: int, k: int, device="cuda"
 ) -> ErasureCoder:
     if n > ErasureCoder.MAX_N:
-        raise ValueError(
-            f"n={n} exceeds the GF(2^8) shard ceiling of "
-            f"{ErasureCoder.MAX_N}; the port's GF(2^16) codec is a later "
-            "slice (ROADMAP.md)"
+        # past the GF(2^8) shard-index ceiling (the reference's hard
+        # limit): the GF(2^16) coders
+        from cleisthenes_tpu_torch.ops.rs16 import (
+            Cpu16ErasureCoder,
+            Cuda16ErasureCoder,
         )
+
+        if backend == "cpu":
+            return Cpu16ErasureCoder(n, k)
+        if backend == "cuda":
+            return Cuda16ErasureCoder(n, k, device=device)
+        raise ValueError(f"unknown erasure backend {backend!r}")
     if backend == "cpu":
         from cleisthenes_tpu_torch.ops.rs_cpu import CpuErasureCoder
 
@@ -159,8 +168,8 @@ class BatchCrypto:
 
         Returns ``(data (B, k, L), roots (B, 32) uint8, dispatches)``.
         The 'cuda' backend runs the chain as one device-resident call
-        (ops/rs_cuda.py ``decode_recheck``); the host backend is the
-        3-step sequence."""
+        (ops/rs_cuda.py ``decode_recheck``); the host backend and the
+        GF(2^16) coders (n > 256) take the 3-step sequence."""
         fused = getattr(self.erasure, "decode_recheck_batch", None)
         if fused is not None:
             data, roots = fused(indices, shards)

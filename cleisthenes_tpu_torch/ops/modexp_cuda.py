@@ -1,7 +1,7 @@
-"""Batched Montgomery modexp on the card: the port's K7-K10.
+"""Batched Montgomery modexp on the card: the port's K7-K10 and K12.
 
 The counterpart of the reference's device functions in
-``cleisthenes_tpu/ops/modmath.py:425-732``.  Four entry points, each
+``cleisthenes_tpu/ops/modmath.py:313-732``.  Six entry points, each
 with its plain PyTorch version beside it:
 
 - ``mont_mul_batch``     K10, ``mont_mul_batch`` (modmath.py:504)
@@ -11,12 +11,20 @@ with its plain PyTorch version beside it:
                          fixed-base comb, two launches (a table per
                          base, then one thread per exponent, which
                          names its base by a row index)
+- ``wide_pow_fused``,    K12, ``_wide_kernels(lay)`` (:313) -> its
+  ``wide_dual_pow_fused``  ``pow_fused`` (:351) and ``dual_pow_fused``
+                         (:378) for groups of 257 to 2112 bits
+                         (csrc/modexp_wide.cu)
 
 The byte contract is the reference's: values are (B, 33) uint8
 little-endian rows (a base may lie anywhere in [0, 2^264)), exponents
 (B, 32) uint8 big-endian rows, results (B, 33) rows in [0, p).  The
 group rides in as a ``MontSpec`` (``mont_spec(p)``), the counterpart of
 the reference's ``_spec256``: any odd modulus of 256 bits or fewer.
+The wide entry points take the reference's wide byte contract: values
+(B, val_bytes) little-endian rows already reduced mod p, exponents
+(B, val_bytes) big-endian rows, for the 48-, 99- and 264-byte families
+(``wide_spec(p, val_bytes)``, the counterpart of ``_spec_wide``).
 
 K10 differs from the reference in its radix.  The reference's
 ``mont_mul_batch`` takes (B, 22) 12-bit limbs and returns
@@ -26,20 +34,24 @@ R = 2^256).  The two agree on integer semantics:
 out * 2^256 == x * y == ref_out * 2^264 (mod p).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
-it launches the kernel (csrc/modexp.cu) or raises.  The plain versions
-work in int64 with 17 limbs of 16 bits and their own radix 2^272,
-whose headroom over p lets every product skip the conditional subtract:
-a product's limbs are normalised by whole-tensor carry passes, and only
-the final result is reduced to [0, p).  Only their outputs need to
-match the kernels', so the plain generic pow uses a 4-bit fixed window
-(256 squarings and 64 multiplies) to keep its op count low.
+it launches the kernel (csrc/modexp.cu, csrc/modexp_wide.cu) or
+raises.  The plain versions work in int64 with L limbs of 16 bits and
+their own radix 2^(16 L) — L = 17 for the 256-bit kernels, one limb
+past the value's width for a wide family — whose headroom over p lets
+every product skip the conditional subtract: a product's limbs are
+normalised by whole-tensor carry passes, and only the final result is
+reduced to [0, p).  Only their outputs need to match the kernels', so
+the plain pows use a 4-bit fixed window from the batch's first nonzero
+exponent nibble.  ``pow_fused_plain`` and ``dual_pow_fused_plain``
+take a ``MontSpec`` or a ``WideSpec``: they are the plain versions of
+both K7/K8 and K12.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,13 +62,18 @@ from cleisthenes_tpu_torch.ops.sha256_cuda import _on_cuda
 # the kernels' radix (8 x 32-bit limbs)
 KERNEL_R_BITS = 256
 
-# the plain versions' limbs: L limbs of W bits, radix 2^(W*L) = 2^272
+# the plain versions' limbs: W bits each; the 256-bit kernels' plain
+# versions use L = 17 limbs, radix 2^(W*L) = 2^272
 _W = 16
 _L = 17
 _MASK = (1 << _W) - 1
-_PLAIN_R_BITS = _W * _L
 COMB_ROWS = 64  # nibble positions of a 256-bit exponent
 COMB_COLS = 16  # nibble values
+# The port's one table of the wide families (csrc/modexp_wide.cu), value
+# bytes -> 32-bit words: moduli of at most 384, 792 and 2112 bits (the
+# reference's (12, 32), (11, 72) and (11, 192) limb families,
+# modmath.py:177-310, by their byte widths).
+WIDE_WORDS = {48: 12, 99: 25, 264: 66}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +87,48 @@ class MontSpec:
 
     p: int
     words: np.ndarray = dataclasses.field(compare=False, repr=False)
+    val_bytes = 33  # value rows (264-bit capacity)
+    plain_limbs = _L
 
 
-def _words(x: int, n: int = 8) -> list:
+@dataclasses.dataclass(frozen=True)
+class WideSpec:
+    """Montgomery constants of one odd modulus in a wide family.
+
+    ``words`` is the kernels' argument: 3 nw + 1 uint32 (p, -p^-1 mod
+    2^32, R mod p, R^2 mod p, each nw little-endian words,
+    R = 2^(32 nw)).  Values and exponents are ``val_bytes`` rows; the
+    plain versions use ``plain_limbs`` 16-bit limbs, one past the
+    value's width (radix 2^(16 plain_limbs) > 2^16 p)."""
+
+    p: int
+    val_bytes: int
+    words: np.ndarray = dataclasses.field(compare=False, repr=False)
+
+    @property
+    def nw(self) -> int:
+        return WIDE_WORDS[self.val_bytes]
+
+    @property
+    def plain_limbs(self) -> int:
+        return (self.val_bytes + 1) // 2 + 1
+
+
+def _words(x: int, n: int) -> list:
     return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(n)]
+
+
+def _spec_words(p: int, nw: int, powers: int) -> np.ndarray:
+    """The kernels' constants of odd ``p`` with nw 32-bit words: p,
+    -p^-1 mod 2^32, then R^k mod p for k = 1..powers (R = 2^(32 nw)),
+    each nw little-endian words; read-only."""
+    r = 1 << (32 * nw)
+    words = _words(p, nw) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
+    for k in range(1, powers + 1):
+        words += _words(pow(r, k, p), nw)
+    out = np.array(words, dtype=np.uint32)
+    out.setflags(write=False)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,17 +140,35 @@ def mont_spec(p: int) -> MontSpec:
             f"modulus of {p.bit_length()} bits (odd={p % 2 == 1}): the "
             "CUDA Montgomery kernels take odd moduli of at most 256 bits"
         )
-    r = 1 << KERNEL_R_BITS
-    words = np.array(
-        _words(p)
-        + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
-        + _words(r % p)
-        + _words(r * r % p)
-        + _words(r * r * r % p),
-        dtype=np.uint32,
-    )
-    words.setflags(write=False)
-    return MontSpec(p=p, words=words)
+    return MontSpec(p=p, words=_spec_words(p, KERNEL_R_BITS // 32, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_spec(p: int, val_bytes: int) -> WideSpec:
+    """The WideSpec of odd modulus ``p`` in the family of ``val_bytes``
+    (48, 99 or 264) byte rows; raises when the family does not host p."""
+    nw = WIDE_WORDS.get(val_bytes)
+    if nw is None or p % 2 == 0 or p < 3 or p.bit_length() > 8 * val_bytes:
+        raise ValueError(
+            f"modulus of {p.bit_length()} bits (odd={p % 2 == 1}) does not "
+            f"fit a wide family of {val_bytes}-byte values "
+            f"(families: {sorted(WIDE_WORDS)})"
+        )
+    return WideSpec(p=p, val_bytes=val_bytes, words=_spec_words(p, nw, 2))
+
+
+def family_bytes(p: int) -> Optional[int]:
+    """The value bytes of the smallest CUDA family that hosts odd modulus
+    ``p``: 33 (``MontSpec``, K7-K10) for at most 256 bits, else 48, 99 or
+    264 (``WideSpec``, K12) for at most 8 x that many bits; None for an
+    even modulus or one wider than 2112 bits.  Unlike the reference's
+    256-bit layout, the 33-byte family takes no 257- to 264-bit modulus
+    (csrc/modexp.cu's R is 2^256): those go to the 48-byte one."""
+    if p % 2 == 0 or p < 3:
+        return None
+    if p.bit_length() <= KERNEL_R_BITS:
+        return MontSpec.val_bytes
+    return next((vb for vb in WIDE_WORDS if p.bit_length() <= 8 * vb), None)
 
 
 # ---------------------------------------------------------------------------
@@ -103,37 +176,38 @@ def mont_spec(p: int) -> MontSpec:
 # ---------------------------------------------------------------------------
 
 
-def _limbs(x: int) -> list:
-    return [(x >> (_W * i)) & _MASK for i in range(_L)]
+def _limbs(x: int, n: int) -> list:
+    return [(x >> (_W * i)) & _MASK for i in range(n)]
 
 
 @functools.lru_cache(maxsize=None)
-def _plain_consts(p: int, device: torch.device) -> dict:
-    """Constants of the plain Montgomery product (radix 2^272) on one
-    device: p's limbs, the Toeplitz matrices that multiply by
-    -p^-1 mod R (low half) and by p, R mod p, R^2 mod p, and 2^288 mod p
-    (which turns a radix-2^272 product into the kernels' 2^-256)."""
-    r = 1 << _PLAIN_R_BITS
-    pl = _limbs(p)
-    pinv = _limbs((-pow(p, -1, r)) % r)
-    t_pinv = torch.zeros((_L, _L), dtype=torch.int64)
-    t_p = torch.zeros((_L, 2 * _L - 1), dtype=torch.int64)
-    skew = torch.full((_L, 2 * _L - 1), _L, dtype=torch.int64)
-    for i in range(_L):
-        for k in range(i, _L):
+def _plain_consts(p: int, device: torch.device, nlimbs: int = _L) -> dict:
+    """Constants of the plain Montgomery product with ``nlimbs`` limbs
+    (radix R = 2^(16 nlimbs), 2^272 for the 256-bit kernels) on one
+    device: p's limbs, the Toeplitz matrices (float64, see ``_mont``)
+    that multiply by -p^-1 mod R (low half) and by p, R mod p,
+    R^2 mod p, and 2^288 mod p (which turns a radix-2^272 product into
+    the K10 kernel's 2^-256)."""
+    n = nlimbs
+    r = 1 << (_W * n)
+    pl = _limbs(p, n)
+    pinv = _limbs((-pow(p, -1, r)) % r, n)
+    t_pinv = torch.zeros((n, n), dtype=torch.float64)
+    t_p = torch.zeros((n, 2 * n - 1), dtype=torch.float64)
+    for i in range(n):
+        for k in range(i, n):
             t_pinv[i, k] = pinv[k - i]
-        for j in range(_L):
+        for j in range(n):
             t_p[i, i + j] = pl[j]
-            skew[i, i + j] = j
 
     def vec(x: int) -> torch.Tensor:
-        return torch.tensor(_limbs(x), dtype=torch.int64, device=device)
+        return torch.tensor(_limbs(x, n), dtype=torch.int64, device=device)
 
     return {
+        "L": n,
         "p": vec(p),
         "t_pinv": t_pinv.to(device),
         "t_p": t_p.to(device),
-        "skew": skew.to(device),
         "one": vec(r % p),
         "r2": vec(r * r % p),
         "c288": vec((1 << 288) % p),
@@ -154,68 +228,77 @@ def _carry(x: torch.Tensor, passes: int) -> torch.Tensor:
 
 
 def _mont(a: torch.Tensor, b: torch.Tensor, c: dict) -> torch.Tensor:
-    """a * b / 2^272 mod p, up to a multiple of p: (..., 17) int64
-    limbs below 2^17 in and out.  The output is below a*b/R + 1.05p, so
-    inputs below 1.1p (or one below 2^264 and the other below p) give
-    an output below 1.1p (R = 2^272 > 2^16 p): products chain without
-    a conditional subtract.
+    """a * b / R mod p, up to a multiple of p, for R = 2^(16 L) > 2^16 p:
+    (..., L) int64 limbs below 2^17 in and out.  The output is below
+    a*b/R + 1.01p, so inputs below 1.1p (or one below 2^(16 L - 8) and
+    the other below p) give an output below 1.1p: products chain
+    without a conditional subtract.
 
-    Bounds: limb products < 2^34, column sums < 2^38.1; m's columns
-    < 2^58.1 before its three carry passes; S = t + m*p < 2^39.  The
-    division by R is exact: the low half of S is k*R, and k is
-    ceil((S[16] * 2^16 + S[15]) / 2^32), since the lower columns add
-    less than 2^-8 to that quotient."""
-    bz = torch.nn.functional.pad(b, (0, 1))
-    bt = bz[..., c["skew"]]  # (..., L, 2L-1): bt[i, i+j] = b[j]
-    t = (a.unsqueeze(-1) * bt).sum(-2)  # (..., 2L-1) columns of a*b
-    m = (t[..., :_L].unsqueeze(-1) * c["t_pinv"]).sum(-2)  # -t/p mod R
-    m = _carry(m, 3)
-    s = t + (m.unsqueeze(-1) * c["t_p"]).sum(-2)
-    k = (s[..., _L - 1] * (1 << _W) + s[..., _L - 2] + ((1 << 32) - 1)) >> 32
-    u = torch.nn.functional.pad(s[..., _L:], (0, 1))
+    Bounds, for L <= 133 (the 2112-bit family): limb products < 2^34,
+    column sums t < 2^41.1; t's low half is carried to limbs < 2^17
+    first, so m's columns stay < 2^40.1 and three carry passes leave
+    m < 1.01 R; S = t + m*p < 2^42.  The division by R is exact: the
+    low half of S is k*R, and k is ceil((S[L-1] * 2^16 + S[L-2]) /
+    2^32), since the lower columns add less than 2^-6 to that
+    quotient.
+
+    The three limb products run as float64 matrix products: every
+    operand is an integer below 2^17 and every partial sum an integer
+    below 2^42, so float64 holds them exactly, in any summation order.
+    a*b is a product of b's sliding windows with a reversed."""
+    n = c["L"]
+    win = torch.nn.functional.pad(b.double(), (n - 1, n - 1)).unfold(-1, n, 1)
+    t = torch.matmul(win, a.double().flip(-1).unsqueeze(-1)).squeeze(-1).long()
+    lo = _carry(t[..., :n], 3)  # t mod R, limbs < 2^17
+    m = _carry(torch.matmul(lo.double(), c["t_pinv"]).long(), 3)  # -t/p mod R
+    s = t + torch.matmul(m.double(), c["t_p"]).long()
+    k = (s[..., n - 1] * (1 << _W) + s[..., n - 2] + ((1 << 32) - 1)) >> 32
+    u = torch.nn.functional.pad(s[..., n:], (0, 1))
     u[..., 0] += k
     return _carry(u, 2)
 
 
-def _bytes_to_limbs(b: torch.Tensor) -> torch.Tensor:
-    """(..., 33) uint8 little-endian -> (..., 17) int64 16-bit limbs."""
-    x = torch.nn.functional.pad(b.to(torch.int64), (0, 1))
-    x = x.reshape(*b.shape[:-1], _L, 2)
+def _bytes_to_limbs(b: torch.Tensor, nlimbs: int) -> torch.Tensor:
+    """(..., nb) uint8 little-endian, nb <= 2 nlimbs -> (..., nlimbs)
+    int64 16-bit limbs."""
+    x = torch.nn.functional.pad(b.to(torch.int64), (0, 2 * nlimbs - b.shape[-1]))
+    x = x.reshape(*b.shape[:-1], nlimbs, 2)
     return x[..., 0] | (x[..., 1] << 8)
 
 
-def _limbs_to_bytes(x: torch.Tensor, c: dict) -> torch.Tensor:
-    """(B, 17) limbs of a value below 2p -> (B, 33) uint8 of its
+def _limbs_to_bytes(x: torch.Tensor, c: dict, nbytes: int) -> torch.Tensor:
+    """(B, L) limbs of a value below 2p -> (B, nbytes) uint8 of its
     residue in [0, p): one sequential carry, one conditional
     subtract (once per call, so the per-limb loops are cheap)."""
+    n = c["L"]
     x = x.clone()
-    for i in range(_L - 1):
+    for i in range(n - 1):
         x[:, i + 1] += x[:, i] >> _W
         x[:, i] &= _MASK
     d = x - c["p"]
-    for i in range(_L - 1):
+    for i in range(n - 1):
         d[:, i + 1] += d[:, i] >> _W  # arithmetic shift: floor borrow
         d[:, i] &= _MASK
-    x = torch.where(d[:, _L - 1 :] >= 0, d, x)
-    out = torch.stack([x & 0xFF, x >> 8], -1).reshape(x.shape[0], 2 * _L)
-    return out[:, :33].to(torch.uint8)
+    x = torch.where(d[:, n - 1 :] >= 0, d, x)
+    out = torch.stack([x & 0xFF, x >> 8], -1).reshape(x.shape[0], 2 * n)
+    return out[:, :nbytes].to(torch.uint8)
 
 
 def _nibbles_msb(e: torch.Tensor) -> torch.Tensor:
-    """(B, 32) big-endian exponent bytes -> (B, 64) int64 nibbles, most
-    significant first."""
+    """(B, nb) big-endian exponent bytes -> (B, 2 nb) int64 nibbles,
+    most significant first."""
     e = e.to(torch.int64)
-    return torch.stack([e >> 4, e & 15], -1).reshape(e.shape[0], 64)
+    return torch.stack([e >> 4, e & 15], -1).reshape(e.shape[0], -1)
 
 
 def _to_mont(b: torch.Tensor, c: dict) -> torch.Tensor:
-    """(B, 33) values below 2^264 -> Montgomery-domain limbs."""
-    x = _bytes_to_limbs(b)
+    """(B, nb) values below 2^(8 nb) -> Montgomery-domain limbs."""
+    x = _bytes_to_limbs(b, c["L"])
     return _mont(x, c["r2"].expand_as(x), c)
 
 
-def _from_mont(x: torch.Tensor, c: dict) -> torch.Tensor:
-    return _limbs_to_bytes(_mont(x, c["unit"].expand_as(x), c), c)
+def _from_mont(x: torch.Tensor, c: dict, nbytes: int) -> torch.Tensor:
+    return _limbs_to_bytes(_mont(x, c["unit"].expand_as(x), c), c, nbytes)
 
 
 def _powers16(x: torch.Tensor, c: dict) -> torch.Tensor:
@@ -233,13 +316,16 @@ def _powers16(x: torch.Tensor, c: dict) -> torch.Tensor:
 
 
 def _pow_mont(x: torch.Tensor, e: torch.Tensor, c: dict) -> torch.Tensor:
-    """x^e in the Montgomery domain by a 4-bit fixed window: x (B, 17)
-    Montgomery limbs, e (B, 32) big-endian exponent bytes."""
+    """x^e in the Montgomery domain by a 4-bit fixed window from the
+    batch's first nonzero nibble: x (B, L) Montgomery limbs, e (B, nb)
+    big-endian exponent bytes."""
     tab = _powers16(x, c)
     nib = _nibbles_msb(e)
+    nonzero = (nib != 0).any(0).nonzero()
+    first = int(nonzero[0]) if len(nonzero) else nib.shape[1] - 1
     rows = torch.arange(x.shape[0], device=x.device)
-    acc = tab[rows, nib[:, 0]]
-    for k in range(1, 64):
+    acc = tab[rows, nib[:, first]]
+    for k in range(first + 1, nib.shape[1]):
         for _ in range(4):
             acc = _mont(acc, acc, c)
         acc = _mont(acc, tab[rows, nib[:, k]], c)
@@ -249,32 +335,36 @@ def _pow_mont(x: torch.Tensor, e: torch.Tensor, c: dict) -> torch.Tensor:
 def mont_mul_batch_plain(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Tensor:
     """(B, 33) x, y in [0, p) -> (B, 33) x*y*2^-256 mod p."""
     c = _plain_consts(spec.p, a.device)
-    x = _mont(_bytes_to_limbs(a), _bytes_to_limbs(b), c)  # x*y/2^272
+    x = _mont(_bytes_to_limbs(a, _L), _bytes_to_limbs(b, _L), c)  # x*y/2^272
     x = _mont(x, c["c288"].expand_as(x), c)  # * 2^288 / 2^272
-    return _limbs_to_bytes(x, c)
+    return _limbs_to_bytes(x, c, 33)
 
 
-def pow_fused_plain(base: torch.Tensor, exp: torch.Tensor, spec: MontSpec) -> torch.Tensor:
-    """(B, 33) bases, (B, 32) exponents -> (B, 33) base^exp mod p."""
+def pow_fused_plain(base: torch.Tensor, exp: torch.Tensor, spec) -> torch.Tensor:
+    """The plain K7 and K12 pow: (B, vb) bases, (B, eb) exponents ->
+    (B, vb) base^exp mod p, for a MontSpec (vb = 33, eb = 32) or a
+    WideSpec (vb = eb = val_bytes)."""
+    vb = spec.val_bytes
     if base.shape[0] == 0:
-        return torch.empty((0, 33), dtype=torch.uint8, device=base.device)
-    c = _plain_consts(spec.p, base.device)
-    return _from_mont(_pow_mont(_to_mont(base, c), exp, c), c)
+        return torch.empty((0, vb), dtype=torch.uint8, device=base.device)
+    c = _plain_consts(spec.p, base.device, spec.plain_limbs)
+    return _from_mont(_pow_mont(_to_mont(base, c), exp, c), c, vb)
 
 
 def dual_pow_fused_plain(
     u1: torch.Tensor, e1: torch.Tensor, u2: torch.Tensor, e2: torch.Tensor,
-    spec: MontSpec,
+    spec,
 ) -> torch.Tensor:
-    """(B, 33) u1, u2 and (B, 32) e1, e2 -> (B, 33) u1^e1 * u2^e2 mod p."""
-    b = u1.shape[0]
+    """The plain K8 and K12 dual pow: (B, vb) u1, u2 and (B, eb) e1, e2
+    -> (B, vb) u1^e1 * u2^e2 mod p, for a MontSpec or a WideSpec."""
+    b, vb = u1.shape[0], spec.val_bytes
     if b == 0:
-        return torch.empty((0, 33), dtype=torch.uint8, device=u1.device)
-    c = _plain_consts(spec.p, u1.device)
+        return torch.empty((0, vb), dtype=torch.uint8, device=u1.device)
+    c = _plain_consts(spec.p, u1.device, spec.plain_limbs)
     both = _pow_mont(
         _to_mont(torch.cat([u1, u2]), c), torch.cat([e1, e2]), c
     )
-    return _from_mont(_mont(both[:b], both[b:], c), c)
+    return _from_mont(_mont(both[:b], both[b:], c), c, vb)
 
 
 def comb_table_plain(bases: torch.Tensor, spec: MontSpec) -> torch.Tensor:
@@ -310,7 +400,7 @@ def pow_fused_grouped_plain(
     acc = tab[row + nib[:, 63]]
     for k in range(1, COMB_ROWS):
         acc = _mont(acc, tab[row + k * COMB_COLS + nib[:, 63 - k]], c)
-    return _from_mont(acc, c)
+    return _from_mont(acc, c, 33)
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +422,12 @@ def _check_bytes(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
         )
 
 
-def _launch(fn: str, sites: Tuple[str, ...], ref: torch.Tensor, *args) -> None:
-    """One launch of ``fn`` on ``ref``'s card and current stream."""
-    lib = _kb.load("modexp")
+def _launch(
+    fn: str, sites: Tuple[str, ...], ref: torch.Tensor, *args, lib: str = "modexp"
+) -> None:
+    """One launch of ``fn`` (from ``csrc/<lib>.cu``) on ``ref``'s card and
+    current stream."""
+    lib = _kb.load(lib)
     with torch.cuda.device(ref.device):
         rc = getattr(lib, fn)(*args, _kb.stream_of(ref))
     _kb.check(rc, fn)
@@ -435,6 +528,45 @@ def pow_fused_grouped(
     return out
 
 
+def wide_pow_fused(base: torch.Tensor, exp: torch.Tensor, spec: WideSpec) -> torch.Tensor:
+    """K12 pow: (B, val_bytes) bases in [0, p), (B, val_bytes) big-endian
+    exponents -> (B, val_bytes) base^exp mod p."""
+    vb = spec.val_bytes
+    _check_bytes("wide_pow_fused base", base, (-1, vb))
+    _check_bytes("wide_pow_fused exp", exp, (base.shape[0], vb))
+    if not _on_cuda(base, exp):
+        return pow_fused_plain(base, exp, spec)
+    out = torch.empty_like(base)
+    if base.shape[0]:
+        _launch(
+            "wide_pow_fused", ("wide_pow",), base, base.data_ptr(),
+            exp.data_ptr(), out.data_ptr(), base.shape[0], spec.nw,
+            spec.words.ctypes.data, lib="modexp_wide",
+        )
+    return out
+
+
+def wide_dual_pow_fused(
+    u1: torch.Tensor, e1: torch.Tensor, u2: torch.Tensor, e2: torch.Tensor,
+    spec: WideSpec,
+) -> torch.Tensor:
+    """K12 dual pow: (B, val_bytes) u1, u2 in [0, p) and e1, e2 ->
+    (B, val_bytes) u1^e1 * u2^e2 mod p."""
+    b, vb = u1.shape[0], spec.val_bytes
+    for name, t in (("u1", u1), ("e1", e1), ("u2", u2), ("e2", e2)):
+        _check_bytes(f"wide_dual_pow_fused {name}", t, (b, vb))
+    if not _on_cuda(u1, e1, u2, e2):
+        return dual_pow_fused_plain(u1, e1, u2, e2, spec)
+    out = torch.empty_like(u1)
+    if b:
+        _launch(
+            "wide_dual_pow_fused", ("wide_dual_pow",), u1, u1.data_ptr(),
+            e1.data_ptr(), u2.data_ptr(), e2.data_ptr(), out.data_ptr(), b,
+            spec.nw, spec.words.ctypes.data, lib="modexp_wide",
+        )
+    return out
+
+
 __all__ = [
     "COMB_COLS",
     "COMB_ROWS",
@@ -443,6 +575,7 @@ __all__ = [
     "comb_table_plain",
     "dual_pow_fused",
     "dual_pow_fused_plain",
+    "family_bytes",
     "mont_mul_batch",
     "mont_mul_batch_plain",
     "mont_spec",
@@ -450,4 +583,9 @@ __all__ = [
     "pow_fused_grouped",
     "pow_fused_grouped_plain",
     "pow_fused_plain",
+    "WIDE_WORDS",
+    "WideSpec",
+    "wide_dual_pow_fused",
+    "wide_pow_fused",
+    "wide_spec",
 ]

@@ -9,11 +9,12 @@ import pytest
 
 from cleisthenes_tpu.config import Config as RefConfig
 from cleisthenes_tpu.ops import coin as ref_coin
+from cleisthenes_tpu.ops import modmath as ref_mm
 from cleisthenes_tpu.ops import tpke as ref_tpke
 from cleisthenes_tpu.protocol.honeybadger import setup_keys as ref_setup_keys
 from cleisthenes_tpu_torch import interop
 from cleisthenes_tpu_torch.config import Config
-from cleisthenes_tpu_torch.ops import coin, tpke
+from cleisthenes_tpu_torch.ops import coin, modmath, tpke
 from cleisthenes_tpu_torch.protocol.keys import setup_keys
 
 
@@ -21,26 +22,44 @@ def _ids(n):
     return [f"node{i:03d}" for i in range(n)]
 
 
-def _carried(n, seed):
-    ref = ref_setup_keys(RefConfig(n=n), _ids(n), seed=seed)
+def _carried(n, seed, group=None):
+    ref = ref_setup_keys(
+        RefConfig(n=n), _ids(n), seed=seed,
+        group=group and getattr(ref_mm, group),
+    )
     return ref, interop.keys_from_plain(
         {m: dataclasses.asdict(k) for m, k in ref.items()}
     )
 
 
-@pytest.mark.parametrize("n,seed", [(4, 1), (7, 5), (16, 77)])
-def test_carried_keys_equal_port_setup(n, seed):
-    _ref, carried = _carried(n, seed)
-    ours = setup_keys(Config(n=n, device="cpu"), _ids(n), seed=seed)
+@pytest.mark.parametrize(
+    "n,seed,group",
+    [(4, 1, None), (7, 5, None), (16, 77, None), (257, 13, None),
+     (7, 21, "GROUP384")],
+)
+def test_carried_keys_equal_port_setup(n, seed, group):
+    """Rosters of 4 to 257 (past the GF(2^8) ceiling) and the 384-bit
+    group: the carried keys are the port's own dealer output."""
+    _ref, carried = _carried(n, seed, group)
+    ours = setup_keys(
+        Config(n=n, device="cpu"), _ids(n), seed=seed,
+        group=group and getattr(modmath, group),
+    )
     assert carried == ours
+    if group:
+        assert ours[_ids(n)[0]].tpke_pub.group == modmath.GROUP384
 
 
-def test_verification_keys_as_byte_rows():
-    ref = ref_setup_keys(RefConfig(n=4), _ids(4), seed=9)
+@pytest.mark.parametrize("group,width", [(None, 32), ("GROUP384", 48)])
+def test_verification_keys_as_byte_rows(group, width):
+    ref = ref_setup_keys(
+        RefConfig(n=4), _ids(4), seed=9, group=group and getattr(ref_mm, group)
+    )
     plain = dataclasses.asdict(ref["node001"])
     vks = plain["tpke_pub"]["verification_keys"]
+    assert ref["node001"].tpke_pub.group.nbytes == width
     plain["tpke_pub"]["verification_keys"] = np.stack(
-        [np.frombuffer(v.to_bytes(32, "big"), np.uint8) for v in vks]
+        [np.frombuffer(v.to_bytes(width, "big"), np.uint8) for v in vks]
     )
     node = interop.node_keys_from_plain(plain)
     assert node.tpke_pub.verification_keys == tuple(vks)

@@ -11,6 +11,7 @@ come from ``secrets``."""
 
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -77,6 +78,74 @@ def test_lockstep_matches_reference(n, backend):
     assert sum(len(v) for c in committed for v in c.values()) == min(
         SHAPES[n][1], SHAPES[n][2] * max(batch, n) // n * n
     )
+
+
+# rosters past the GF(2^8) ceiling and the 384-bit group:
+# (n, batch_size, transactions, epochs, group, key_seed)
+WIDE_SHAPES = {
+    "n257": (257, 257, 257, 1, None, 13),
+    "g384": (4, 64, 192, 3, "GROUP384", 21),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_wide(case):
+    from cleisthenes_tpu.ops import modmath as ref_mm
+
+    n, batch, total, epochs, group, seed = WIDE_SHAPES[case]
+    c = RefCluster(
+        n=n, batch_size=batch, crypto_backend="cpu", key_seed=seed,
+        group=group and getattr(ref_mm, group),
+    )
+    for i in range(total):
+        c.submit(_tx(i))
+    rounds = [c.run_epoch()["bba_rounds"] for _ in range(epochs)]
+    return [b.contributions for b in c.committed_batches], rounds
+
+
+@pytest.mark.parametrize(
+    "case,backend",
+    [("n257", "cpu"), ("n257", "cuda-codec"), ("g384", "cuda"), ("g384", "cpu")],
+)
+def test_lockstep_matches_reference_wide(case, backend):
+    """n=257 (the port of test_spmd.py's
+    test_lockstep_roster_past_gf256_ceiling: the GF(2^16) codec, a
+    512-leaf forest, f=85) and a GROUP384 roster (the 384-bit family on
+    the 'cuda' engine) commit the reference's batches in the reference's
+    round counts.  n=257 keeps the 'cpu' modexp engine: its ~400k
+    exponentiations a round are far beyond the plain modexp versions on
+    a CPU.  Its 'cuda-codec' case swaps in the 'cuda' GF(2^16) codec
+    (K11's plain version on a CPU device, delivery in three steps)."""
+    from cleisthenes_tpu_torch.ops import modmath as mm
+    from cleisthenes_tpu_torch.ops.backend import make_erasure_coder
+    from cleisthenes_tpu_torch.ops.rs16 import Cuda16ErasureCoder
+
+    n, batch, total, epochs, group, seed = WIDE_SHAPES[case]
+    codec = backend == "cuda-codec"
+    c = LockstepCluster(
+        n=n, batch_size=batch, crypto_backend="cpu" if codec else backend,
+        device="cpu", key_seed=seed, group=group and getattr(mm, group),
+    )
+    if codec:
+        c.crypto.erasure = make_erasure_coder("cuda", n, c.crypto.k, device="cpu")
+        assert isinstance(c.crypto.erasure, Cuda16ErasureCoder)
+        idx = np.tile(np.arange(c.crypto.k), (2, 1))
+        shards = np.zeros((2, c.crypto.k, 128), dtype=np.uint8)
+        assert c.crypto.decode_recheck_batch(idx, shards)[2] == 3
+    if n > 256:
+        assert c.crypto.erasure.MAX_N == 1 << 16
+    if group:
+        assert c.tpke.group is mm.GROUP384
+        eng = mm.get_engine_degraded(backend, mm.GROUP384, device="cpu")
+        assert eng.backend == backend  # no silent fallback to the host
+    for i in range(total):
+        c.submit(_tx(i))
+    rounds = [c.run_epoch()["bba_rounds"] for _ in range(epochs)]
+    committed = [b.contributions for b in c.committed_batches]
+    assert (committed, rounds) == _reference_wide(case)
+    assert {tx for b in c.committed() for tx in b.tx_list()} == {
+        _tx(i) for i in range(total)
+    }
 
 
 def test_lockstep_commits_all_txs():

@@ -333,9 +333,16 @@ def test_engine_cuda_needs_a_gpu_or_the_cpu():
 
 
 def test_engine_routing_for_wide_groups():
-    """A group no CUDA layout hosts (the 384-bit one) degrades to the
-    host engine; asking for the device engine explicitly raises."""
-    wide = mm.GroupParams(p=ref.P384, q=(ref.P384 - 1) // 2, g=4)
+    """The 384-bit group now gets a 'cuda' engine (the K12 family); a
+    group no CUDA family hosts (past 2112 bits, as in the reference's
+    test_xla_engine_still_rejects_beyond_every_family) degrades to the
+    host engine, and asking for the device engine explicitly raises."""
+    g384 = mm.GroupParams(p=ref.P384, q=(ref.P384 - 1) // 2, g=4)
+    assert mm.cuda_capable(g384) and g384 == mm.GROUP384
+    eng384 = mm.get_engine_degraded("cuda", g384, device="cpu")
+    assert eng384.backend == "cuda" and eng384 is mm.get_engine("cuda", g384, device="cpu")
+    p_huge = (1 << 3000) + 117  # odd, 3001 bits
+    wide = mm.GroupParams(p=p_huge, q=(p_huge - 1) // 2, g=4)
     assert not mm.cuda_capable(wide)
     assert mm.cuda_capable(mm.DEFAULT_GROUP) and mm.cuda_capable(GROUPS["p2"])
     assert not mm.cuda_capable(mm.GroupParams(p=2**255, q=1, g=4))
