@@ -28,13 +28,18 @@ before printing any result.  It prints, in order:
    with the 512-leaf forest and the D=9 branch verify) and, parity
    only, at N=300/f=99, encode held also against the host
    ``Cpu16ErasureCoder``; and the wide pow and dual pow (K12) in the
-   384-bit (batch 2048), 768-bit (512) and 2048-bit (128) groups, held
-   against their plain versions and Python's ``pow``.  The timed lines
-   carry the kernel's time (CUDA events, median of 20 calls after a
-   warm-up; 5 for the 2048-bit group), the plain version's (median of
-   3), launches per call and the bound (for a pow or dual pow, from the
-   fewest Montgomery products a fixed-window method needs for the
-   run's exponents);
+   384-bit (batch 2048), 768-bit (512) and 2048-bit (128) groups, at the
+   GROUP384 epoch's own calls (a pow of 98,304 exponents over 257
+   bases, a dual pow of 22,016 rows, half of them Lagrange rows) and,
+   untimed, on ragged batches (1, 33, 2,047 and 98,303 rows at 384
+   bits; 1, 33 and 511 at 768; 1, 33 and 127 at 2048), every batch
+   starting with edge rows (bases 0, 1, p - 1; exponents 0, 1, q,
+   all-ones; e2 = 0 beside e1 != 0), held against their plain versions
+   and Python's ``pow``.  The timed lines carry the kernel's time (CUDA
+   events, median of 20 calls after a warm-up; 5 for the 2048-bit
+   group), the plain version's (median of 3), launches per call and the
+   bound (for a pow or dual pow, from the fewest Montgomery products a
+   fixed-window method needs for the run's exponents);
 3. three paths through ``LockstepCluster`` with its defaults (the
    'cuda' backend), each committing 3 epochs of random 64-byte
    transactions, every one exactly once, with the launch counts set to
@@ -95,10 +100,6 @@ SHA_OPS_PER_NODE = 2675
 # by the same script in ``probe_mont``: 205 IMAD, 187 IADD3, 15 SHF,
 # 8 SEL and the rest.
 MONT_OPS = 429
-# 32-bit instructions of one wide Montgomery product (csrc/modexp_wide.cu
-# ``wide_prod``) per family word count, from the same script's
-# ``wide_mont_ops`` line: alu(probe_wide_prod) + (NW - 1) * alu(probe_wide_step).
-WIDE_MONT_OPS = {12: 1013, 25: 4068, 66: 26987}
 # the second 256-bit safe prime of the repository's group tests
 P2 = 0x93A40B764F1F5026ADA7C38AA3EF4EE81E01E89F9FE80837B1E370913DA99F13
 # the wide groups of bench.py's wide-group section, with its batches:
@@ -584,28 +585,89 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
     return out
 
 
+def wide_rows(rnd, p: int, n: int, lagrange_half: bool):
+    """(u1, e1, u2, e2) lists of n dual-pow rows mod p (the pow takes u1,
+    e1): the edge rows first — bases 0, 1 and p - 1; exponents 0, 1, q
+    and all-ones; e2 = 0 beside e1 != 0 with u2 != 1, a Lagrange row
+    (u2 = 1, e2 = 0), e1 = 0 beside e2 != 0 — then random rows, the
+    second half of them Lagrange rows when ``lagrange_half``."""
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+
+    q = (p - 1) // 2
+    ones = (1 << (8 * mx.family_bytes(p))) - 1
+    edges = [
+        (0, 0, p - 1, ones), (1, 1, 0, q), (p - 1, q, 1, 0),
+        (rnd.randrange(p), ones, rnd.randrange(2, p), 0), (0, q, 5, 1),
+        (p - 1, ones, p - 1, ones), (1, 0, rnd.randrange(p), q),
+    ][:n]
+    half = n // 2 if lagrange_half else n
+    rows = edges + [
+        (rnd.randrange(p), rnd.randrange(q))
+        + ((rnd.randrange(p), rnd.randrange(q)) if i < half else (1, 0))
+        for i in range(len(edges), n)
+    ]
+    return tuple(list(c) for c in zip(*rows))
+
+
+# the GROUP384 epoch's K12 calls: round 0's issue wave (g with EPOCH_G
+# exponents, EPOCH_BASES more bases with EPOCH_PER_BASE each) flattened into
+# one wide pow, and the CP-verify/combine dual pow of EPOCH_DUAL rows
+EPOCH_G, EPOCH_BASES, EPOCH_PER_BASE, EPOCH_DUAL = 32768, 256, 256, 22016
+# untimed ragged batches per wide group: not a multiple of a team, a warp or
+# a block of any family's plan
+WIDE_RAGGED = {384: (1, 33, 2047, 98303), 768: (1, 33, 511), 2048: (1, 33, 127)}
+
+
+def epoch_pow_rows(rnd, p: int):
+    """(bases, exponents) of the GROUP384 epoch's round-0 wide pow: the
+    edge rows of ``wide_rows`` in place of g's first exponents."""
+    q = (p - 1) // 2
+    bases = [4] + [rnd.randrange(p) for _ in range(EPOCH_BASES)]
+    u1, e1, _u2, _e2 = wide_rows(rnd, p, 7, False)
+    flat_b = u1 + [bases[0]] * (EPOCH_G - 7) + [
+        b for b in bases[1:] for _ in range(EPOCH_PER_BASE)
+    ]
+    return flat_b, e1 + [rnd.randrange(q) for _ in range(len(flat_b) - 7)]
+
+
 def wide_phase(torch, dev, rnd) -> dict:
-    """The K12 entry points at the shapes of ``bench.py``'s wide-group
-    section: the 384-bit GROUP384 prime at batch 2048, the 768-bit RFC 2409
-    Oakley group 1 at 512 and the 2048-bit RFC 3526 MODP-14 group at 128.
-    Pow and dual pow in each, held against their plain versions and
-    against Python's ``pow`` on a sample, timed; returns
-    {"<entry point>@<bits>": record}."""
+    """The K12 entry points, pow and dual pow, in every wide family, each
+    held byte for byte against its plain version and against Python's
+    ``pow`` on the edge rows and a sample:
+
+    - timed at ``bench.py``'s shapes (``WIDE_GROUPS``: the 384-bit
+      GROUP384 prime at batch 2048, the 768-bit RFC 2409 Oakley group 1
+      at 512, the 2048-bit RFC 3526 MODP-14 group at 128): keys
+      ``<entry>@<bits>``;
+    - timed at the GROUP384 epoch's own calls: round 0's issue wave
+      flattened into one wide pow (98,304 exponents over 257 bases: g
+      with 32,768, 256 bases with 256 each) and the CP-verify/combine
+      dual pow (22,016 rows, half of them Lagrange rows u2 = 1, e2 = 0):
+      keys ``<entry>@384_epoch``;
+    - untimed on the ragged batches of ``WIDE_RAGGED``: keys
+      ``<entry>@<bits>_B<n>``.
+
+    The bounds count ``least_pow``/``least_dual`` products times
+    ``WIDE_BOUND_OPS``.  Returns {key: record}."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.csrc.sass_ops import WIDE_BOUND_OPS
     from cleisthenes_tpu_torch.ops import modexp_cuda as mx
 
-    out = {}
+    jobs = []  # (key, bits, p, rows, timed, reps)
     for bits, p, batch in WIDE_GROUPS:
+        jobs.append((f"{bits}", bits, p, wide_rows(rnd, p, batch, True), True,
+                     5 if bits == 2048 else 20))
+        for n in WIDE_RAGGED[bits]:
+            jobs.append((f"{bits}_B{n}", bits, p, wide_rows(rnd, p, n, True), False, 0))
+        if bits == 384:
+            jobs.append(("384_epoch", bits, p, epoch_pow_rows(rnd, p), True, 20))
+            jobs.append(("384_epoch", bits, p, wide_rows(rnd, p, EPOCH_DUAL, True), True, 20))
+    out = {}
+    for tag, bits, p, rows, timed, reps in jobs:
         vb = mx.family_bytes(p)
         spec = mx.wide_spec(p, vb)
-        q = (p - 1) // 2
-        half = batch // 2
-        u1_i = [0, 1, p - 1] + [rnd.randrange(p) for _ in range(batch - 3)]
-        e1_i = [0, 1, q] + [rnd.randrange(q) for _ in range(batch - 3)]
-        u2_i = [rnd.randrange(p) for _ in range(half)] + [1] * (batch - half)
-        e2_i = [rnd.randrange(q) for _ in range(half)] + [0] * (batch - half)
 
         def le(xs, _vb=vb):
             return np.frombuffer(b"".join(x.to_bytes(_vb, "little") for x in xs), np.uint8).reshape(-1, _vb)
@@ -613,26 +675,31 @@ def wide_phase(torch, dev, rnd) -> dict:
         def be(xs, _vb=vb):
             return np.frombuffer(b"".join(x.to_bytes(_vb, "big") for x in xs), np.uint8).reshape(-1, _vb)
 
-        arrs = [le(u1_i), be(e1_i), le(u2_i), be(e2_i)]
-        u1, e1, u2, e2 = (torch.from_numpy(a.copy()).to(dev) for a in arrs)
-        idx = list(range(3)) + list(range(batch - 3, batch)) + rnd.sample(range(3, batch - 3), 26)
+        arrs = [f(x) for f, x in zip((le, be, le, be), rows)]
+        t = [torch.from_numpy(a.copy()).to(dev) for a in arrs]
+        batch = len(rows[0])
+        sample = sorted(set(range(min(7, batch))) | set(range(max(0, batch - 3), batch))
+                        | set(rnd.sample(range(batch), min(batch, 22))))
         cases = {
             "wide_pow_fused": (
-                lambda: mx.wide_pow_fused(u1, e1, spec),
-                lambda: mx.pow_fused_plain(u1, e1, spec),
-                lambda res: all(res[i] == pow(u1_i[i], e1_i[i], p) for i in idx),
-                batch * 3 * vb, int(least_pow(np, arrs[1]).sum()),
-            ),
-            "wide_dual_pow_fused": (
-                lambda: mx.wide_dual_pow_fused(u1, e1, u2, e2, spec),
-                lambda: mx.dual_pow_fused_plain(u1, e1, u2, e2, spec),
-                lambda res: all(
-                    res[i] == pow(u1_i[i], e1_i[i], p) * pow(u2_i[i], e2_i[i], p) % p
-                    for i in idx
-                ),
-                batch * 5 * vb, int(least_dual(np, arrs[1], arrs[3]).sum()),
+                lambda: mx.wide_pow_fused(t[0], t[1], spec),
+                lambda: mx.pow_fused_plain(t[0], t[1], spec),
+                lambda res: all(res[i] == pow(rows[0][i], rows[1][i], p) for i in sample),
+                batch * 3 * vb, lambda: int(least_pow(np, arrs[1]).sum()),
             ),
         }
+        if len(rows) == 4:
+            cases["wide_dual_pow_fused"] = (
+                lambda: mx.wide_dual_pow_fused(*t, spec),
+                lambda: mx.dual_pow_fused_plain(*t, spec),
+                lambda res: all(
+                    res[i] == pow(rows[0][i], rows[1][i], p) * pow(rows[2][i], rows[3][i], p) % p
+                    for i in sample
+                ),
+                batch * 5 * vb, lambda: int(least_dual(np, arrs[1], arrs[3]).sum()),
+            )
+            if tag == "384_epoch":
+                del cases["wide_pow_fused"]  # the epoch's pow is the job before
         for name, (kern, plain, sample_ok, nbytes, products) in cases.items():
             before = sum(COUNTS.kernels.values())
             got = kern()
@@ -646,18 +713,24 @@ def wide_phase(torch, dev, rnd) -> dict:
                 "equal": torch.equal(got, want) and sample_ok(res),
                 "max_abs_err": float(err),
                 "launches_per_call": per_call,
-                "kernel_ms": time_ms(torch, kern, 5 if bits == 2048 else 20),
-                "plain_ms": time_ms(torch, plain, 3),
             }
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, products * WIDE_MONT_OPS[spec.nw])
-            print(
-                f"kernel {name} bits={bits} B={batch} words={spec.nw}: equal={rec['equal']} "
-                f"launches_per_call={per_call} kernel_ms={rec['kernel_ms']} "
-                f"plain_ms={rec['plain_ms']} bound_ms={rec['bound_ms']} "
-                f"({rec['bound_by']}, {products} products)",
-                flush=True,
+            line = (
+                f"kernel {name} bits={bits} B={batch} words={spec.nw} "
+                f"shape={tag}: equal={rec['equal']} launches_per_call={per_call}"
             )
-            out[f"{name}@{bits}"] = rec
+            if timed:
+                n_prod = products()
+                rec["kernel_ms"] = time_ms(torch, kern, reps)
+                rec["plain_ms"] = time_ms(torch, plain, 3)
+                rec["bound_ms"], rec["bound_by"] = bound(nbytes, n_prod * WIDE_BOUND_OPS[spec.nw])
+                rec["products"] = n_prod
+                line += (
+                    f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']} "
+                    f"bound_ms={rec['bound_ms']} ({rec['bound_by']}, {n_prod} products) "
+                    f"x_bound={rec['kernel_ms'] / rec['bound_ms']}"
+                )
+            print(line, flush=True)
+            out[f"{name}@{tag}"] = rec
     return out
 
 
@@ -980,7 +1053,7 @@ def main() -> int:
     records.update(phases["modexp"])
     records["gf65536_apply"] = phases["n512"]["rs16_encode"]
     for name in ("wide_pow_fused", "wide_dual_pow_fused"):
-        records[name] = phases["wide"][f"{name}@384"]
+        records[name] = phases["wide"][f"{name}@384_epoch"]
     kernels = []
     for name, source, replaces in KERNELS:
         rec = records[name]

@@ -1,51 +1,64 @@
 // Batched Montgomery exponentiation for groups wider than 256 bits, on
-// Hopper (sm_90a).
+// Hopper (sm_90a): a team of lanes per exponentiation, a fixed window,
+// tables and exponents in shared memory.
 //
 // Replaces the TPU kernels of cleisthenes_tpu/ops/modmath.py (K12):
 //   _wide_kernels(lay) (:313) -> pow_fused (:351)       wide_pow_fused: b^e mod p
 //                             -> dual_pow_fused (:378)  wide_dual_pow_fused:
-//                                                       u1^e1 * u2^e2 mod p (Shamir)
+//                                                       u1^e1 * u2^e2 mod p
 // on the reference's Montgomery core (_make_mont_mul, :425), for its three
 // wide limb families: <= 384 bits (48-byte values; GROUP384, the width of
 // BLS12-381's base field), <= 792 bits (99 bytes; the 768-bit Oakley group)
 // and <= 2112 bits (264 bytes; the 2048-bit MODP-14 group).
 //
-// Byte contract (the reference's): values are val_bytes little-endian rows,
-// already reduced mod p on the host; exponents are val_bytes big-endian rows;
-// results are val_bytes little-endian rows in [0, p).  The group is an
+// Byte contract (the reference's): values are VB-byte little-endian rows,
+// already reduced mod p on the host; exponents are VB-byte big-endian rows;
+// results are VB-byte little-endian rows in [0, p).  The group is an
 // argument (WideSpec: p, -p^-1 mod 2^32, R mod p, R^2 mod p for
-// R = 2^(32 NW)), so one build of a family serves every odd modulus that fits
-// it.
+// R = 2^(32 NW)), so one build of a family serves every odd modulus that
+// fits it.  A value is NW = 12, 25 or 66 32-bit words (the 99-byte family
+// pads its top word: radix 2^800 against the reference's 2^792; only the
+// normal-domain result has to match).
 //
-// Layout.  The reference's lazy-carry 12- and 11-bit limbs are shaped for the
-// TPU's int32 vector unit.  Here a value is NW = 12, 25 or 66 32-bit words,
-// one thread per exponentiation, and the product is csrc/modexp.cu's CIOS
-// with 32 x 32 -> 64-bit multiplies, one template over NW.  The 99-byte
-// family pads its top word (25 words = 800 bits), so its radix 2^800 differs
-// from the reference's 2^792; only the normal-domain result has to match.
-// Two hazards:
-// - p's top bit may be set (P384 fills its 12 words), so the CIOS sum reaches
-//   2p > R: it keeps an extra carry word and the final conditional subtract
-//   compares all 32 NW + 1 bits;
-// - registers.  The product's left operand is read one word per outer step
-//   from a per-thread array in local memory (L1-resident), so only the right
-//   operand and the running sum need registers.  The word loops unroll fully
-//   up to 32 words (the 12- and 25-word families keep every value in
-//   registers); at 66 words they unroll by kPartialUnroll, so the sum and the
-//   operands live in local memory.  Fully unrolled, the 66-word product
-//   crashes NVVM (cicc, CUDA 12.9) and would not fit 255 registers anyway.
-//   ptxas's registers and stack per family are in PERF.md
-//   (csrc/sass_ops.py).
-// The exponent loop starts at the first nonzero exponent byte, so a Lagrange
-// row's e2 = 0 or a short exponent costs no leading squarings of one.
-//
-// Bound on the H100: integer multiply work, as for csrc/modexp.cu.  A product
-// is NW CIOS steps and a final subtract; csrc/sass_ops.py counts the SASS of
-// both per family.  An exponentiation is ~1.5 * 32 NW products on 2-3 values
-// of I/O, so these kernels are bound by operations at the INT32 rate, never by
-// bytes.  Blocks are one warp (kThreads = 32), so a 2048-bit batch of 128
-// spreads over four SMs instead of one; a warp per exponentiation is a later
-// redesign.
+// What bounds it.  Integer multiply-add work at the card's INT32 rate: an
+// exponentiation is hundreds to thousands of Montgomery products on two or
+// three rows of I/O, so bytes never bound it.  The design keeps the ALUs
+// of every SM fed:
+// - a team of T lanes per exponentiation (Plan::T, one per family).  Lane
+//   l holds K = ceil(NW / T) words of the accumulator, of p and of the
+//   right operand, all in registers.  The product is CIOS across the team:
+//   word a_i of the left operand is broadcast from its lane by a shuffle,
+//   m = t_0 * p' from the team's first lane, and each lane runs its K words
+//   of t + a_i b + m p.  A lane's carry out of its top word is not passed
+//   on at once: it waits in `hi` at the next lane's first word, joins that
+//   word when the sum shifts down one word, and after the last step one
+//   resolve (a shuffle and two ballots, carry-lookahead over the warp's
+//   lanes) makes the sum exact.  The conditional subtract of p resolves its
+//   borrows the same way.  The plans (wide_sweep.py times the others):
+//   at 12 words T = 1, a lane per exponentiation with every word in
+//   registers and no shuffle, fastest at the GROUP384 epoch's 98,304
+//   exponentiations; at 25 and 66 words T = 32, a warp per
+//   exponentiation (1 and 3 words a lane), fastest at the batches of 512
+//   and 128 that these groups see, with nothing in local memory.  Blocks
+//   of Plan::THREADS lanes spread the teams over the card's 132 SMs;
+// - a fixed window with a warp-uniform schedule: each exponentiation builds
+//   a table of 2^w Montgomery-domain powers of its base, then walks w-bit
+//   digits from the warp's first nonzero digit position: w squarings and a
+//   table product per digit, with no per-lane branch.  A zero digit
+//   multiplies by entry 0 (R mod p), unless every team of the warp has a
+//   zero digit there, when the product is skipped.  The dual pow keeps a
+//   table per base over one shared chain of squarings, so a warp of
+//   Lagrange rows (u2 = 1, e2 = 0) skips the second table and all its
+//   products (the engine's calls send those rows after the CP rows);
+// - tables and exponents in shared memory: a table is word-major with the
+//   block's lane index fastest, so a warp's loads of any entries hit 32
+//   distinct banks; a block stages its exponent and base rows (and its
+//   results) through shared memory with 16-byte coalesced copies.
+// No tensor cores: each row multiplies its own two operands, so only the
+// m * p half of a product shares an operand across rows, and an int8-MMA
+// product would need the kernel near its ALU bound first.
+// ptxas's registers, stack and spills per family, and the instructions of
+// one team product, are printed by csrc/sass_ops.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,15 +66,7 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kFullUnrollWords = 32;
-constexpr int kPartialUnroll = 6;
-
-// Unroll factor of a loop over the words of an NW-word value.
-template <int NW>
-struct WordUnroll {
-  static constexpr int value = NW <= kFullUnrollWords ? NW : kPartialUnroll;
-};
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <int NW>
 struct WideSpec {
@@ -71,187 +76,440 @@ struct WideSpec {
   uint32_t r2[NW];   // R^2 mod p: into the Montgomery domain
 };
 
-// One CIOS step: t = (t + ai * b + m * p) / 2^32, with m = t0 * pinv making
-// the division exact.  t has NW + 2 words.
-template <int NW>
-__device__ __forceinline__ void cios_step(uint32_t t[NW + 2], uint32_t ai,
-                                          const uint32_t b[NW],
-                                          const WideSpec<NW>& s) {
-  uint64_t c = 0;
-#pragma unroll (WordUnroll<NW>::value)
-  for (int j = 0; j < NW; ++j) {
-    c += (uint64_t)ai * b[j] + t[j];
-    t[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  c += t[NW];
-  t[NW] = (uint32_t)c;
-  t[NW + 1] = (uint32_t)(c >> 32);
-  const uint32_t m = t[0] * s.pinv;
-  c = ((uint64_t)m * s.p[0] + t[0]) >> 32;
-#pragma unroll (WordUnroll<NW>::value)
-  for (int j = 1; j < NW; ++j) {
-    c += (uint64_t)m * s.p[j] + t[j];
-    t[j - 1] = (uint32_t)c;
-    c >>= 32;
-  }
-  c += t[NW];
-  t[NW - 1] = (uint32_t)c;
-  t[NW] = t[NW + 1] + (uint32_t)(c >> 32);
+// One family's design: NW words in VB-byte rows, a team of T lanes, pow
+// window W, dual-pow window WD (per base), THREADS lanes a block and the
+// blocks an SM must hold (ptxas's register budget).
+template <int NW_, int VB_, int T_, int W_, int WD_, int THREADS_, int MIN_BLOCKS_>
+struct Plan {
+  static constexpr int NW = NW_;
+  static constexpr int VB = VB_;
+  static constexpr int T = T_;
+  static constexpr int W = W_;
+  static constexpr int WD = WD_;
+  static constexpr int THREADS = THREADS_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int K = (NW + T - 1) / T;  // words a lane holds
+  static constexpr int TEAMS = THREADS / T;   // exponentiations a block
+  // unroll of the product's loop over the team's lanes (code size)
+  static constexpr int STEP_UNROLL = T <= 4 ? T : 1;
+  static_assert(T == 1 || T == 2 || T == 4 || T == 8 || T == 16 || T == 32,
+                "a team is a power-of-two part of a warp");
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps");
+  static_assert(W >= 1 && W <= 8 && WD >= 1 && WD <= 8, "digits span two bytes");
+  static_assert(4 * NW >= VB && 4 * (NW - 1) < VB, "NW words hold VB bytes");
+};
+
+// The one plan of each family (csrc/sass_ops.py and the tests read them
+// from these lines).
+using Plan12 = Plan<12, 48, 1, 4, 3, 128, 2>;
+using Plan25 = Plan<25, 99, 32, 5, 5, 128, 4>;
+using Plan66 = Plan<66, 264, 32, 5, 5, 128, 2>;
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// Shared memory of a launch: nexp staged exponent rows per team, then
+// ntab tables of 2^w entries (K words a lane, lane index fastest).  The
+// table area first stages the bases and last the results.
+template <class P>
+constexpr int smem_bytes(int nexp, int ntab, int w) {
+  return nexp * round16(P::TEAMS * P::VB) + ntab * (1 << w) * P::K * P::THREADS * 4;
 }
 
-// r = t - p if t >= p else t, for t < 2p held in NW + 1 words.
-template <int NW>
-__device__ __forceinline__ void cios_final(uint32_t r[NW],
-                                           const uint32_t t[NW + 2],
-                                           const WideSpec<NW>& s) {
-  uint32_t borrow = 0;
-#pragma unroll (WordUnroll<NW>::value)
-  for (int j = 0; j < NW; ++j) {
-    const uint64_t x = (uint64_t)t[j] - s.p[j] - borrow;
-    borrow = (uint32_t)(x >> 63);
-  }
-  const bool ge = t[NW] >= borrow;
-  borrow = 0;
-#pragma unroll (WordUnroll<NW>::value)
-  for (int j = 0; j < NW; ++j) {
-    const uint64_t x = (uint64_t)t[j] - s.p[j] - borrow;
-    borrow = (uint32_t)(x >> 63);
-    r[j] = ge ? (uint32_t)x : t[j];
-  }
+// An H100's shared memory: the most a block may opt in to, and an SM's for
+// all its blocks (each block also holds 1 KB the runtime reserves).
+constexpr int kSmemPerBlock = 227 * 1024;
+constexpr int kSmemPerSM = 228 * 1024;
+
+template <class P>
+constexpr bool smem_fits(int smem) {
+  return smem <= kSmemPerBlock && P::MIN_BLOCKS * (smem + 1024) <= kSmemPerSM;
 }
 
-// r = a * b / R mod p for a < R and b < p; r may alias b (not a).  a is
-// read one word per step (a runtime index: it lives in local memory).
-template <int NW>
-__device__ __forceinline__ void wide_prod(uint32_t r[NW], const uint32_t* a,
-                                          const uint32_t b[NW],
-                                          const WideSpec<NW>& s) {
-  uint32_t t[NW + 2];
+template <class P>
+struct Lane {
+  uint32_t p[P::K];  // this lane's words of p
+  uint32_t pinv;
+  int tl;            // lane index in the team
+  unsigned lane;     // lane index in the warp
+  bool top;          // the team's last lane
+};
+
+// The K words of an NW-word constant that lane tl holds (zero past NW).
+template <class P>
+__device__ __forceinline__ void spec_slice(const uint32_t* words, int tl,
+                                           uint32_t v[P::K]) {
 #pragma unroll
-  for (int j = 0; j < NW + 2; ++j) t[j] = 0;
-#pragma unroll 1
-  for (int i = 0; i < NW; ++i) cios_step<NW>(t, a[i], b, s);
-  cios_final<NW>(r, t, s);
+  for (int k = 0; k < P::K; ++k) {
+    const int wi = tl * P::K + k;
+    v[k] = wi < P::NW ? words[wi] : 0u;
+  }
 }
 
-template <int NW>
-__device__ __forceinline__ void copy_words(uint32_t* r, const uint32_t* x) {
+template <class P>
+__device__ __forceinline__ Lane<P> make_lane(const WideSpec<P::NW>& s) {
+  Lane<P> L;
+  L.tl = (int)(threadIdx.x % P::T);
+  L.lane = threadIdx.x & 31u;
+  L.top = L.tl == P::T - 1;
+  L.pinv = s.pinv;
+  spec_slice<P>(s.p, L.tl, L.p);
+  return L;
+}
+
+// Carry (or borrow) into each lane of the warp from the lanes below it in
+// its team: gen = the lane's own carry out, prop = it passes a carry in
+// through.  Carry-lookahead as one addition over the warp's lanes; a team's
+// top lane is left out of both masks, so nothing crosses into the next
+// team.
+__device__ __forceinline__ uint32_t carry_in(bool gen, bool prop, bool top,
+                                             unsigned lane) {
+  const uint32_t g = __ballot_sync(kFull, gen && !top);
+  const uint32_t pr = __ballot_sync(kFull, prop && !top);
+  return ((((g | pr) + g) ^ pr) >> lane) & 1u;
+}
+
+// r = a * b / R mod p across the team, for a < R and b < p (this lane's K
+// words of each).  r may alias a or b: it is written last.
+template <class P>
+__device__ __forceinline__ void team_prod(uint32_t r[P::K], const uint32_t a[P::K],
+                                          const uint32_t b[P::K], const Lane<P>& L) {
+  constexpr int K = P::K;
+  constexpr int T = P::T;
+  uint32_t t[K];
 #pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = x[j];
+  for (int j = 0; j < K; ++j) t[j] = 0;
+  uint32_t hi = 0;  // carry waiting at the next lane's first word
+  int src = 0;
+#pragma unroll (P::STEP_UNROLL)
+  for (int i0 = 0; i0 < P::NW; i0 += K, ++src) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (i0 + k < P::NW) {
+        uint32_t ai, m;
+        if constexpr (T == 1) {
+          ai = a[k];
+          m = (t[0] + ai * b[0]) * L.pinv;
+        } else {
+          ai = __shfl_sync(kFull, a[k], src, T);
+          m = __shfl_sync(kFull, (t[0] + ai * b[0]) * L.pinv, 0, T);
+        }
+        uint64_t c1 = 0, c2 = 0;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          c1 += (uint64_t)ai * b[j] + t[j];
+          const uint32_t u = (uint32_t)c1;
+          c1 >>= 32;
+          c2 += (uint64_t)m * L.p[j] + u;
+          t[j] = (uint32_t)c2;
+          c2 >>= 32;
+        }
+        // shift down one word: the team's word 0 is zero (m's choice) and
+        // drops out; the next lane's first word comes down to this lane's
+        // last, with the carries waiting there
+        uint64_t s = (uint64_t)hi + c1 + c2;
+        if constexpr (T > 1) {
+          const uint32_t up = __shfl_down_sync(kFull, t[0], 1, T);
+          s += L.top ? 0u : up;
+        }
+#pragma unroll
+        for (int j = 0; j + 1 < K; ++j) t[j] = t[j + 1];
+        t[K - 1] = (uint32_t)s;
+        hi = (uint32_t)(s >> 32);
+      }
+    }
+  }
+  // t < 2p: make the sum exact, then subtract p if t >= p
+  uint32_t top = hi;  // the top lane's carry word (word T K)
+  if constexpr (T > 1) {
+    uint32_t cin = __shfl_up_sync(kFull, hi, 1, T);
+    if (L.tl == 0) cin = 0;
+    uint64_t c = cin;
+    uint32_t ones = kFull;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      c += t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+      ones &= t[j];
+    }
+    const uint32_t c_own = (uint32_t)c;
+    c = carry_in(c_own != 0, ones == kFull, L.top, L.lane);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      c += t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    top = L.top ? hi + c_own + (uint32_t)c : 0u;
+  }
+  uint32_t d[K];
+  uint32_t borrow = 0, any = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const uint64_t x = (uint64_t)t[j] - L.p[j] - borrow;
+    d[j] = (uint32_t)x;
+    borrow = (uint32_t)(x >> 63);
+    any |= d[j];
+  }
+  bool ge;
+  if constexpr (T > 1) {
+    const uint32_t b_own = borrow;
+    borrow = carry_in(b_own != 0, any == 0, L.top, L.lane);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const uint64_t x = (uint64_t)d[j] - borrow;
+      d[j] = (uint32_t)x;
+      borrow = (uint32_t)(x >> 63);
+    }
+    ge = __shfl_sync(kFull, (int)(top >= (b_own | borrow)), T - 1, T) != 0;
+  } else {
+    ge = top >= borrow;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) r[j] = ge ? d[j] : t[j];
+}
+
+// The W-bit digit d (0 = least significant) of a VB-byte big-endian row.
+template <class P, int W>
+__device__ __forceinline__ uint32_t digit_at(const uint8_t* e, int d) {
+  const int bit = d * W;
+  const int byte = bit >> 3;
+  uint32_t x = e[P::VB - 1 - byte];
+  if (byte + 1 < P::VB) x |= (uint32_t)e[P::VB - 2 - byte] << 8;
+  return (x >> (bit & 7)) & ((1u << W) - 1u);
+}
+
+// The position of a row's top nonzero W-bit digit; -1 for zero.
+template <class P, int W>
+__device__ __forceinline__ int top_digit(const uint8_t* e) {
+  int j = 0;
+  while (j < P::VB && e[j] == 0) ++j;
+  if (j == P::VB) return -1;
+  const int bits = 8 * (P::VB - 1 - j) + 32 - __clz((int)e[j]);
+  return (bits - 1) / W;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  return (int)__reduce_max_sync(kFull, (unsigned)(v + 1)) - 1;
+}
+
+// A table entry: this lane's K words, lane index fastest.
+template <class P>
+__device__ __forceinline__ void store_entry(uint32_t* tab, int e, const uint32_t v[P::K]) {
+  uint32_t* at = tab + e * P::K * P::THREADS + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < P::K; ++k) at[k * P::THREADS] = v[k];
+}
+
+template <class P>
+__device__ __forceinline__ void load_entry(const uint32_t* tab, int e, uint32_t v[P::K]) {
+  const uint32_t* at = tab + e * P::K * P::THREADS + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < P::K; ++k) v[k] = at[k * P::THREADS];
+}
+
+template <class P>
+__device__ __forceinline__ void copy_k(uint32_t r[P::K], const uint32_t x[P::K]) {
+#pragma unroll
+  for (int k = 0; k < P::K; ++k) r[k] = x[k];
 }
 
 // The unit 1 (normal domain): multiplying by it leaves the Montgomery domain.
-template <int NW>
-__device__ __forceinline__ void set_unit(uint32_t* r) {
+template <class P>
+__device__ __forceinline__ void unit_slice(int tl, uint32_t v[P::K]) {
 #pragma unroll
-  for (int j = 0; j < NW; ++j) r[j] = j == 0 ? 1u : 0u;
+  for (int k = 0; k < P::K; ++k) v[k] = (tl == 0 && k == 0) ? 1u : 0u;
 }
 
-// A VB-byte little-endian value into NW words (the top word zero-padded).
-template <int NW, int VB>
-__device__ __forceinline__ void load_val(const uint8_t* src, uint32_t* w) {
+// Block-wide copy of `valid` bytes from global memory into shared memory,
+// zero-filled to `total`; 16-byte loads when the source is aligned.
+template <class P>
+__device__ __forceinline__ void stage_in(uint8_t* dst, const uint8_t* src,
+                                         int valid, int total) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int n16 = valid >> 4;
+    for (int i = threadIdx.x; i < n16; i += P::THREADS)
+      reinterpret_cast<int4*>(dst)[i] = __ldg(reinterpret_cast<const int4*>(src) + i);
+    i0 = n16 << 4;
+  }
+  for (int i = i0 + threadIdx.x; i < total; i += P::THREADS)
+    dst[i] = i < valid ? src[i] : (uint8_t)0;
+}
+
+template <class P>
+__device__ __forceinline__ void stage_out(uint8_t* dst, const uint8_t* src, int valid) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+    const int n16 = valid >> 4;
+    for (int i = threadIdx.x; i < n16; i += P::THREADS)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+    i0 = n16 << 4;
+  }
+  for (int i = i0 + threadIdx.x; i < valid; i += P::THREADS) dst[i] = src[i];
+}
+
+// This lane's K words of a staged VB-byte little-endian row.
+template <class P>
+__device__ __forceinline__ void row_words(const uint8_t* row, int tl, uint32_t w[P::K]) {
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
+  for (int k = 0; k < P::K; ++k) {
     uint32_t x = 0;
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (4 * k + b < VB) x |= (uint32_t)src[4 * k + b] << (8 * b);
+    for (int b = 0; b < 4; ++b) {
+      const int at = 4 * (tl * P::K + k) + b;
+      if (at < P::VB) x |= (uint32_t)row[at] << (8 * b);
+    }
     w[k] = x;
   }
 }
 
-// x < p as a VB-byte little-endian row.
-template <int NW, int VB>
-__device__ __forceinline__ void store_val(uint8_t* dst, const uint32_t x[NW]) {
+template <class P>
+__device__ __forceinline__ void row_bytes(uint8_t* row, int tl, const uint32_t w[P::K]) {
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
+  for (int k = 0; k < P::K; ++k) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (4 * k + b < VB) dst[4 * k + b] = (uint8_t)(x[k] >> (8 * b));
+    for (int b = 0; b < 4; ++b) {
+      const int at = 4 * (tl * P::K + k) + b;
+      if (at < P::VB) row[at] = (uint8_t)(w[k] >> (8 * b));
+    }
   }
 }
 
-template <int NW, int VB>
-__global__ void __launch_bounds__(kThreads)
+// Entries 1 .. 2^w - 1 of a table whose entry 1 is x (Montgomery domain).
+template <class P, int W>
+__device__ __forceinline__ void build_table(uint32_t* tab, const uint32_t x[P::K],
+                                            const Lane<P>& L) {
+  uint32_t cur[P::K];
+  copy_k<P>(cur, x);
+  store_entry<P>(tab, 1, cur);
+#pragma unroll 1
+  for (int e = 2; e < (1 << W); ++e) {
+    team_prod<P>(cur, cur, x, L);
+    store_entry<P>(tab, e, cur);
+  }
+}
+
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
 wide_pow_kernel(const uint8_t* __restrict__ base, const uint8_t* __restrict__ exp,
-                uint8_t* __restrict__ out, long long n, const WideSpec<NW> s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  uint32_t a[NW];  // the next product's left operand (local memory)
-  uint32_t bm[NW], acc[NW];
-  load_val<NW, VB>(base + i * VB, a);
-  copy_words<NW>(bm, s.r2);
-  wide_prod<NW>(bm, a, bm, s);  // base * R mod p
-  copy_words<NW>(acc, s.one);
-  const uint8_t* e = exp + i * VB;
-  int byte = 0;
-  while (byte < VB && e[byte] == 0) ++byte;
+                uint8_t* __restrict__ out, long long n,
+                const __grid_constant__ WideSpec<P::NW> s) {
+  constexpr int K = P::K, VB = P::VB, W = P::W;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ex = smem;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + round16(P::TEAMS * VB));
+  uint8_t* buf = reinterpret_cast<uint8_t*>(tab);  // bases in, results out
+  const long long first = (long long)blockIdx.x * P::TEAMS;
+  const int rows = (int)(n - first < P::TEAMS ? n - first : P::TEAMS);
+  stage_in<P>(ex, exp + first * VB, rows * VB, P::TEAMS * VB);
+  stage_in<P>(buf, base + first * VB, rows * VB, P::TEAMS * VB);
+  __syncthreads();
+  const Lane<P> L = make_lane<P>(s);
+  const int team = threadIdx.x / P::T;
+  const uint8_t* er = ex + team * VB;
+  uint32_t x[K], y[K], acc[K];
+  row_words<P>(buf + team * VB, L.tl, x);
+  const int top = warp_max(top_digit<P, W>(er));
+  __syncthreads();  // the bases are read: the tables take the area
+  spec_slice<P>(s.one, L.tl, acc);
+  if (top >= 0) {
+    store_entry<P>(tab, 0, acc);
+    spec_slice<P>(s.r2, L.tl, y);
+    team_prod<P>(x, x, y, L);  // x R mod p
+    build_table<P, W>(tab, x, L);
+    load_entry<P>(tab, digit_at<P, W>(er, top), acc);
 #pragma unroll 1
-  for (; byte < VB; ++byte) {
-    const uint32_t v = e[byte];
+    for (int d = top - 1; d >= 0; --d) {
 #pragma unroll 1
-    for (int bit = 7; bit >= 0; --bit) {
-      copy_words<NW>(a, acc);
-      wide_prod<NW>(acc, a, acc, s);
-      if ((v >> bit) & 1u) {
-        copy_words<NW>(a, bm);
-        wide_prod<NW>(acc, a, acc, s);
+      for (int q = 0; q < W; ++q) team_prod<P>(acc, acc, acc, L);
+      const uint32_t dv = digit_at<P, W>(er, d);
+      if (__any_sync(kFull, dv != 0)) {
+        load_entry<P>(tab, (int)dv, y);
+        team_prod<P>(acc, acc, y, L);
       }
     }
   }
-  set_unit<NW>(a);
-  wide_prod<NW>(acc, a, acc, s);
-  store_val<NW, VB>(out + i * VB, acc);
+  unit_slice<P>(L.tl, y);
+  team_prod<P>(acc, acc, y, L);
+  __syncthreads();  // every table read is done: the area takes the results
+  row_bytes<P>(buf + team * VB, L.tl, acc);
+  __syncthreads();
+  stage_out<P>(out + first * VB, buf, rows * VB);
 }
 
-template <int NW, int VB>
-__global__ void __launch_bounds__(kThreads)
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
 wide_dual_pow_kernel(const uint8_t* __restrict__ u1, const uint8_t* __restrict__ e1,
                      const uint8_t* __restrict__ u2, const uint8_t* __restrict__ e2,
-                     uint8_t* __restrict__ out, long long n, const WideSpec<NW> s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  uint32_t a[NW];  // the next product's left operand (local memory)
-  uint32_t a1[NW], a2[NW], a12[NW], acc[NW];
-  load_val<NW, VB>(u1 + i * VB, a);
-  copy_words<NW>(a1, s.r2);
-  wide_prod<NW>(a1, a, a1, s);
-  load_val<NW, VB>(u2 + i * VB, a);
-  copy_words<NW>(a2, s.r2);
-  wide_prod<NW>(a2, a, a2, s);
-  copy_words<NW>(a, a1);
-  copy_words<NW>(a12, a2);
-  wide_prod<NW>(a12, a, a12, s);
-  copy_words<NW>(acc, s.one);
-  const uint8_t* x1 = e1 + i * VB;
-  const uint8_t* x2 = e2 + i * VB;
-  int byte = 0;
-  while (byte < VB && (x1[byte] | x2[byte]) == 0) ++byte;
+                     uint8_t* __restrict__ out, long long n,
+                     const __grid_constant__ WideSpec<P::NW> s) {
+  constexpr int K = P::K, VB = P::VB, W = P::WD;
+  constexpr int ROWS = round16(P::TEAMS * VB);
+  constexpr int ENTRIES = 1 << W;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ex1 = smem;
+  uint8_t* ex2 = smem + ROWS;
+  uint32_t* tab1 = reinterpret_cast<uint32_t*>(smem + 2 * ROWS);
+  uint32_t* tab2 = tab1 + ENTRIES * K * P::THREADS;
+  uint8_t* buf = reinterpret_cast<uint8_t*>(tab1);  // bases in, results out
+  const long long first = (long long)blockIdx.x * P::TEAMS;
+  const int rows = (int)(n - first < P::TEAMS ? n - first : P::TEAMS);
+  stage_in<P>(ex1, e1 + first * VB, rows * VB, P::TEAMS * VB);
+  stage_in<P>(ex2, e2 + first * VB, rows * VB, P::TEAMS * VB);
+  stage_in<P>(buf, u1 + first * VB, rows * VB, P::TEAMS * VB);
+  stage_in<P>(buf + ROWS, u2 + first * VB, rows * VB, P::TEAMS * VB);
+  __syncthreads();
+  const Lane<P> L = make_lane<P>(s);
+  const int team = threadIdx.x / P::T;
+  const uint8_t* er1 = ex1 + team * VB;
+  const uint8_t* er2 = ex2 + team * VB;
+  uint32_t x1[K], x2[K], y[K], acc[K];
+  row_words<P>(buf + team * VB, L.tl, x1);
+  row_words<P>(buf + ROWS + team * VB, L.tl, x2);
+  const int top1 = top_digit<P, W>(er1);
+  const int top2 = top_digit<P, W>(er2);
+  const int top = warp_max(top1 > top2 ? top1 : top2);
+  const bool any1 = __any_sync(kFull, top1 >= 0);
+  const bool any2 = __any_sync(kFull, top2 >= 0);
+  __syncthreads();  // the bases are read: the tables take the area
+  spec_slice<P>(s.one, L.tl, acc);
+  if (top >= 0) {
+    store_entry<P>(tab1, 0, acc);
+    store_entry<P>(tab2, 0, acc);
+    spec_slice<P>(s.r2, L.tl, y);
+    if (any1) {
+      team_prod<P>(x1, x1, y, L);
+      build_table<P, W>(tab1, x1, L);
+    }
+    if (any2) {
+      team_prod<P>(x2, x2, y, L);
+      build_table<P, W>(tab2, x2, L);
+    }
+    load_entry<P>(tab1, digit_at<P, W>(er1, top), acc);
 #pragma unroll 1
-  for (; byte < VB; ++byte) {
-    const uint32_t v1 = x1[byte];
-    const uint32_t v2 = x2[byte];
+    for (int d = top;; --d) {
+      const uint32_t d2 = digit_at<P, W>(er2, d);
+      if (__any_sync(kFull, d2 != 0)) {
+        load_entry<P>(tab2, (int)d2, y);
+        team_prod<P>(acc, acc, y, L);
+      }
+      if (d == 0) break;
 #pragma unroll 1
-    for (int bit = 7; bit >= 0; --bit) {
-      copy_words<NW>(a, acc);
-      wide_prod<NW>(acc, a, acc, s);
-      const uint32_t sel = ((v1 >> bit) & 1u) | (((v2 >> bit) & 1u) << 1);
-      if (sel) {
-#pragma unroll
-        for (int j = 0; j < NW; ++j)
-          a[j] = sel == 3u ? a12[j] : (sel == 1u ? a1[j] : a2[j]);
-        wide_prod<NW>(acc, a, acc, s);
+      for (int q = 0; q < W; ++q) team_prod<P>(acc, acc, acc, L);
+      const uint32_t d1 = digit_at<P, W>(er1, d - 1);
+      if (__any_sync(kFull, d1 != 0)) {
+        load_entry<P>(tab1, (int)d1, y);
+        team_prod<P>(acc, acc, y, L);
       }
     }
   }
-  set_unit<NW>(a);
-  wide_prod<NW>(acc, a, acc, s);
-  store_val<NW, VB>(out + i * VB, acc);
-}
-
-inline bool grid_ok(long long n) {
-  return n >= 1 && (n + kThreads - 1) / kThreads <= 0x7FFFFFFFll;
+  unit_slice<P>(L.tl, y);
+  team_prod<P>(acc, acc, y, L);
+  __syncthreads();  // every table read is done: the area takes the results
+  row_bytes<P>(buf + team * VB, L.tl, acc);
+  __syncthreads();
+  stage_out<P>(out + first * VB, buf, rows * VB);
 }
 
 template <int NW>
@@ -263,24 +521,48 @@ inline bool spec_from(const void* words, WideSpec<NW>* s) {
   return (s->p[0] & 1u) != 0;
 }
 
-template <int NW, int VB>
+template <class P>
+inline bool grid_of(long long n, unsigned* blocks) {
+  if (n < 1) return false;
+  const long long b = (n + P::TEAMS - 1) / P::TEAMS;
+  if (b > 0x7FFFFFFFll) return false;
+  *blocks = (unsigned)b;
+  return true;
+}
+
+template <class P>
 int launch_pow(const void* base, const void* exp, void* out, long long n,
                const void* spec, void* stream) {
-  WideSpec<NW> s;
-  if (!spec_from<NW>(spec, &s)) return (int)cudaErrorInvalidValue;
-  wide_pow_kernel<NW, VB><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
-                            0, (cudaStream_t)stream>>>(
+  WideSpec<P::NW> s;
+  unsigned blocks;
+  if (!spec_from<P::NW>(spec, &s) || !grid_of<P>(n, &blocks))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = smem_bytes<P>(1, 1, P::W);
+  static_assert(P::TEAMS * P::VB <= (1 << P::W) * P::K * P::THREADS * 4, "staging");
+  static_assert(smem_fits<P>(smem), "MIN_BLOCKS blocks' shared memory fits an SM");
+  cudaError_t rc = cudaFuncSetAttribute(
+      wide_pow_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  wide_pow_kernel<P><<<blocks, P::THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)base, (const uint8_t*)exp, (uint8_t*)out, n, s);
   return (int)cudaGetLastError();
 }
 
-template <int NW, int VB>
+template <class P>
 int launch_dual(const void* u1, const void* e1, const void* u2, const void* e2,
                 void* out, long long n, const void* spec, void* stream) {
-  WideSpec<NW> s;
-  if (!spec_from<NW>(spec, &s)) return (int)cudaErrorInvalidValue;
-  wide_dual_pow_kernel<NW, VB><<<(unsigned)((n + kThreads - 1) / kThreads),
-                                 kThreads, 0, (cudaStream_t)stream>>>(
+  WideSpec<P::NW> s;
+  unsigned blocks;
+  if (!spec_from<P::NW>(spec, &s) || !grid_of<P>(n, &blocks))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = smem_bytes<P>(2, 2, P::WD);
+  static_assert(2 * round16(P::TEAMS * P::VB) <= 2 * (1 << P::WD) * P::K * P::THREADS * 4,
+                "staging");
+  static_assert(smem_fits<P>(smem), "MIN_BLOCKS blocks' shared memory fits an SM");
+  cudaError_t rc = cudaFuncSetAttribute(
+      wide_dual_pow_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  wide_dual_pow_kernel<P><<<blocks, P::THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)u1, (const uint8_t*)e1, (const uint8_t*)u2,
       (const uint8_t*)e2, (uint8_t*)out, n, s);
   return (int)cudaGetLastError();
@@ -298,11 +580,10 @@ int launch_dual(const void* u1, const void* e1, const void* u2, const void* e2,
 extern "C" int wide_pow_fused(const void* base, const void* exp, void* out,
                               long long n, int nw, const void* spec,
                               void* stream) {
-  if (!grid_ok(n)) return (int)cudaErrorInvalidValue;
   switch (nw) {
-    case 12: return launch_pow<12, 48>(base, exp, out, n, spec, stream);
-    case 25: return launch_pow<25, 99>(base, exp, out, n, spec, stream);
-    case 66: return launch_pow<66, 264>(base, exp, out, n, spec, stream);
+    case 12: return launch_pow<Plan12>(base, exp, out, n, spec, stream);
+    case 25: return launch_pow<Plan25>(base, exp, out, n, spec, stream);
+    case 66: return launch_pow<Plan66>(base, exp, out, n, spec, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -312,11 +593,10 @@ extern "C" int wide_dual_pow_fused(const void* u1, const void* e1,
                                    const void* u2, const void* e2, void* out,
                                    long long n, int nw, const void* spec,
                                    void* stream) {
-  if (!grid_ok(n)) return (int)cudaErrorInvalidValue;
   switch (nw) {
-    case 12: return launch_dual<12, 48>(u1, e1, u2, e2, out, n, spec, stream);
-    case 25: return launch_dual<25, 99>(u1, e1, u2, e2, out, n, spec, stream);
-    case 66: return launch_dual<66, 264>(u1, e1, u2, e2, out, n, spec, stream);
+    case 12: return launch_dual<Plan12>(u1, e1, u2, e2, out, n, spec, stream);
+    case 25: return launch_dual<Plan25>(u1, e1, u2, e2, out, n, spec, stream);
+    case 66: return launch_dual<Plan66>(u1, e1, u2, e2, out, n, spec, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,20 +16,26 @@ kernel, the instructions by opcode and the integer ALU ones
 - ``probe_mont``: one ``mont_prod`` (``csrc/modexp.cu``, 8 x 32-bit
   CIOS with its conditional subtract) on operands and a modulus read
   from memory;
-- ``probe_wide_prod_NW`` and ``probe_wide_step_NW`` for NW = 12 and 25
-  (``csrc/modexp_wide.cu``): one ``wide_prod``, whose outer loop of NW
-  CIOS steps is not unrolled, and one ``cios_step``.  A wide product
-  issues the first's instructions plus NW - 1 more steps, so the script
-  prints ``wide_mont_ops``: alu(prod) + (NW - 1) * alu(step) per family
-  (the loop counter's few instructions a step are left out, so the
-  count stays a lower bound).  The 66-word family's word loops are only
-  partly unrolled, so its static SASS is no count of what it issues:
-  its step and the rest of its product are extrapolated linearly in NW
-  from the two fully unrolled families.
+- ``probe_team_prod_NW`` for NW = 12, 25 and 66
+  (``csrc/modexp_wide.cu``): one ``team_prod`` of the family's plan on
+  one lane's words of the operands and of p read from memory, its loop
+  over the team's lanes unrolled as in the kernels.  The script prints
+  ``wide_team_prod``: the ALU instructions one lane issues for a
+  product (the probe's, plus its loop body's once for every further
+  iteration), per team (times the team's T lanes), and the warp
+  exchanges (shuffles and votes, left out of the ALU count) in the
+  probe's code.  Beside them it prints ``wide_mont_ops``, the earlier
+  one-thread-per-exponentiation kernel's instructions per product
+  (1,013 / 4,068 / 26,987 at 12 / 25 / 66 words), and
+  ``wide_bound_ops``, the count per product that the K12 bounds in
+  ``chip_smoke.py`` use: the lesser of the two.  It exits 1 when a
+  product now takes fewer instructions a team than ``WIDE_TEAM_OPS``
+  records, so that the bounds are brought down with it.
 
 It also prints ``ptxas -v``'s registers, shared memory and spill bytes
-for every kernel of ``csrc/gf65536.cu`` and ``csrc/modexp_wide.cu``
-(the wide families spill at 66 words).
+for every kernel of ``csrc/gf65536.cu`` and ``csrc/modexp_wide.cu``,
+and for the latter a ``ptxas_wide`` summary: registers, stack and
+spill bytes per kernel and family.
 
 Run from the repository root on a machine with ``nvcc`` and
 ``cuobjdump`` (no card needed):
@@ -96,32 +102,33 @@ extern "C" __global__ void probe_mont(const uint32_t* __restrict__ in,
 _PROBES["modexp_wide"] = r"""
 #include "modexp_wide.cu"
 
-#define WIDE_PROBES(NW)                                                        \
-  extern "C" __global__ void probe_wide_step_##NW(                             \
+// One team product of each family's plan, as the kernels run it (its loop
+// over the team's lanes unrolled by the plan's STEP_UNROLL).
+#define WIDE_PROBE(NW, PLAN)                                                   \
+  extern "C" __global__ void probe_team_prod_##NW(                             \
       const uint32_t* __restrict__ in, uint32_t* __restrict__ out) {           \
-    WideSpec<NW> s;                                                            \
-    for (int i = 0; i < NW; ++i) s.p[i] = in[i];                               \
-    s.pinv = in[NW];                                                           \
-    uint32_t t[NW + 2], b[NW];                                                 \
-    _Pragma("unroll") for (int i = 0; i < NW + 2; ++i) t[i] = in[NW + 1 + i];  \
-    _Pragma("unroll") for (int i = 0; i < NW; ++i) b[i] = in[2 * NW + 3 + i];  \
-    cios_step<NW>(t, in[3 * NW + 3], b, s);                                    \
-    _Pragma("unroll") for (int i = 0; i < NW + 2; ++i) out[i] = t[i];          \
-  }                                                                            \
-  extern "C" __global__ void probe_wide_prod_##NW(                             \
-      const uint32_t* __restrict__ in, uint32_t* __restrict__ out) {           \
-    WideSpec<NW> s;                                                            \
-    for (int i = 0; i < NW; ++i) s.p[i] = in[i];                               \
-    s.pinv = in[NW];                                                           \
-    uint32_t a[NW], b[NW];                                                     \
-    _Pragma("unroll") for (int i = 0; i < NW; ++i) a[i] = in[NW + 1 + i];      \
-    _Pragma("unroll") for (int i = 0; i < NW; ++i) b[i] = in[2 * NW + 1 + i];  \
-    wide_prod<NW>(b, a, b, s);                                                 \
-    _Pragma("unroll") for (int i = 0; i < NW; ++i) out[i] = b[i];              \
+    using P = PLAN;                                                            \
+    Lane<P> L;                                                                 \
+    L.tl = (int)(threadIdx.x % P::T);                                          \
+    L.lane = threadIdx.x & 31u;                                                \
+    L.top = L.tl == P::T - 1;                                                  \
+    L.pinv = in[0];                                                            \
+    uint32_t a[P::K], b[P::K];                                                 \
+    __syncthreads(); /* converged, as in the kernels */                        \
+    const uint32_t* at = in + 1 + 3 * P::K * threadIdx.x;                      \
+    _Pragma("unroll") for (int k = 0; k < P::K; ++k) {                         \
+      L.p[k] = at[k];                                                          \
+      a[k] = at[P::K + k];                                                     \
+      b[k] = at[2 * P::K + k];                                                 \
+    }                                                                          \
+    team_prod<P>(a, a, b, L);                                                  \
+    _Pragma("unroll") for (int k = 0; k < P::K; ++k)                           \
+        out[P::K * threadIdx.x + k] = a[k];                                    \
   }
 
-WIDE_PROBES(12)
-WIDE_PROBES(25)
+WIDE_PROBE(12, Plan12)
+WIDE_PROBE(25, Plan25)
+WIDE_PROBE(66, Plan66)
 """
 
 # opcodes that are not 32-bit ALU work: memory, moves, control flow
@@ -129,12 +136,48 @@ _NOT_ALU = {
     "LDG", "STG", "LDC", "ULDC", "LDS", "STS", "LD", "ST", "S2R", "S2UR",
     "MOV", "UMOV", "CS2R", "EXIT", "BRA", "RET", "NOP", "BAR", "BSSY",
     "BSYNC", "IMAD.MOV", "LDL", "STL",
-}
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+} | {"SHFL", "VOTE", "REDUX", "WARPSYNC", "ENDCOLLECTIVE"}
+# warp exchanges (shuffles, votes, reductions), counted on their own
+_WARP = {"SHFL", "VOTE", "REDUX"}
+# 32-bit instructions of one wide Montgomery product per family word count,
+# as counted in the SASS of csrc/modexp_wide.cu's first design (one thread
+# per exponentiation, its CIOS product not shared across lanes) ...
+WIDE_MONT_OPS = {12: 1013, 25: 4068, 66: 26987}
+# ... and of the shipped plans' team product (``wide_team_prod``'s
+# ``alu_per_team``: a lane's count times the team's T lanes).
+WIDE_TEAM_OPS = {12: 950, 25: 11680, 66: 66208}
+# The bound of a wide product (chip_smoke.py's K12 bounds): the fewest
+# instructions any of the two products has been seen to need.
+WIDE_BOUND_OPS = {nw: min(WIDE_MONT_OPS[nw], WIDE_TEAM_OPS[nw]) for nw in WIDE_MONT_OPS}
+# address, opcode and operands of one SASS line
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)")
 
 
 def _cuobjdump() -> str:
     return os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+
+
+def loop_alu(sass: str, fn: str):
+    """(ALU instructions of ``fn``, ALU instructions of its loop body) from
+    ``cuobjdump -sass`` text: the body is the span from the target of the
+    first backward branch to that branch (0 when ``fn`` has no loop)."""
+    insns, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip() == fn
+            continue
+        m = _INSN.search(line) if inside else None
+        if m:
+            op = m.group(2)
+            op = "IMAD.MOV" if op.startswith("IMAD.MOV") else op.split(".")[0]
+            insns.append((int(m.group(1), 16), op, m.group(3)))
+    total = sum(op not in _NOT_ALU for _, op, _ in insns)
+    for addr, op, rest in insns:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if t and int(t.group(1), 16) < addr:
+            lo = int(t.group(1), 16)
+            return total, sum(op2 not in _NOT_ALU for a, op2, _ in insns if lo <= a <= addr)
+    return total, 0
 
 
 def count(sass: str) -> Dict[str, Dict[str, int]]:
@@ -149,7 +192,7 @@ def count(sass: str) -> Dict[str, Dict[str, int]]:
         m = _INSN.search(line)
         if hist is None or m is None:
             continue
-        op = m.group(1)
+        op = m.group(2)
         hist["IMAD.MOV" if op.startswith("IMAD.MOV") else op.split(".")[0]] += 1
     return {fn: dict(h) for fn, h in out.items()}
 
@@ -177,9 +220,12 @@ def main() -> int:
              str(work / f"{name}.cubin"), str(_CSRC / f"{name}.cu")],
             check=True, capture_output=True, text=True,
         )
-        for line in (log.stdout + log.stderr).splitlines():
+        text = log.stdout + log.stderr
+        for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+        if name == "modexp_wide":
+            print("ptxas_wide " + json.dumps(ptxas_summary(text)))
     result = {}
     for fn, hist in count(sass).items():
         alu = sum(n for op, n in hist.items() if op not in _NOT_ALU)
@@ -187,22 +233,70 @@ def main() -> int:
         print(f"{fn}: alu={alu} all={sum(hist.values())} "
               + json.dumps(dict(sorted(hist.items(), key=lambda kv: -kv[1]))))
     print("sass_ops " + json.dumps({fn: r["alu"] for fn, r in result.items()}))
-    print("wide_mont_ops " + json.dumps(wide_mont_ops({fn: r["alu"] for fn, r in result.items()})))
+    team = {}
+    for nw, plan in wide_plans().items():
+        fn = f"probe_team_prod_{nw}"
+        total, body = loop_alu(sass, fn)
+        t = plan["team"]
+        k = -(-nw // t)  # Plan::K, the words a lane holds
+        # team_prod's outer loop: NW / K steps, unrolled by Plan::STEP_UNROLL
+        iters = -(-nw // k) // (t if t <= 4 else 1)
+        lane = total + (iters - 1) * body if body else total
+        warp = sum(n for op, n in result[fn]["by_opcode"].items() if op in _WARP)
+        team[nw] = {"team": t, "alu_per_lane": lane, "alu_per_team": lane * t,
+                    "loop_body_alu": body, "loop_iterations": iters if body else 1,
+                    "warp_ops_static": warp}
+    print("wide_team_prod " + json.dumps(team))
+    print("wide_mont_ops " + json.dumps(WIDE_MONT_OPS))
+    print("wide_bound_ops " + json.dumps(WIDE_BOUND_OPS))
+    stale = [nw for nw, r in team.items() if r["alu_per_team"] < WIDE_TEAM_OPS[nw]]
+    if stale:
+        print(f"sass_ops: WIDE_TEAM_OPS is above the measured count at {stale} words")
+        return 1
     return 0
 
 
-def wide_mont_ops(alu: Dict[str, int]) -> Dict[int, int]:
-    """{NW: 32-bit ALU instructions one wide product issues}: counted for
-    the fully unrolled 12- and 25-word families, extrapolated linearly
-    in NW (a step, and the rest of a product) for the 66-word one."""
-    step = {nw: alu[f"probe_wide_step_{nw}"] for nw in (12, 25)}
-    rest = {nw: alu[f"probe_wide_prod_{nw}"] - step[nw] for nw in (12, 25)}
+_PLAN = re.compile(r"using Plan(\d+) = Plan<([\d,\s]+)>;")
+_PLAN_FIELDS = ("nw", "val_bytes", "team", "window", "dual_window", "threads", "min_blocks")
 
-    def line(v: Dict[int, int], nw: int) -> float:
-        return v[12] + (v[25] - v[12]) * (nw - 12) / 13
 
-    out = {nw: nw * step[nw] + rest[nw] for nw in (12, 25)}
-    out[66] = round(66 * line(step, 66) + line(rest, 66))
+def wide_plans() -> Dict[int, Dict[str, int]]:
+    """{NW: plan} as csrc/modexp_wide.cu declares ``Plan12/25/66``: the
+    template's arguments by name (``_PLAN_FIELDS``)."""
+    src = (_CSRC / "modexp_wide.cu").read_text()
+    return {
+        int(m.group(1)): dict(zip(_PLAN_FIELDS, (int(x) for x in m.group(2).split(","))))
+        for m in _PLAN.finditer(src)
+    }
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """{"<pow|dual>@<NW>": registers, stack and spill bytes} from
+    ``ptxas -v`` output of csrc/modexp_wide.cu's kernels."""
+    out: Dict[str, Dict[str, int]] = {}
+    key = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            fam = re.search(r"PlanILi(\d+)E", m.group(1))
+            kind = "dual" if "dual" in m.group(1) else "pow"
+            key = f"{kind}@{fam.group(1)}" if fam else None
+            continue
+        if key is None:
+            continue
+        m = _PROPS.search(line)
+        if m:
+            out.setdefault(key, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
     return out
 
 

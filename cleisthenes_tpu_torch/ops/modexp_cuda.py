@@ -14,7 +14,8 @@ with its plain PyTorch version beside it:
 - ``wide_pow_fused``,    K12, ``_wide_kernels(lay)`` (:313) -> its
   ``wide_dual_pow_fused``  ``pow_fused`` (:351) and ``dual_pow_fused``
                          (:378) for groups of 257 to 2112 bits
-                         (csrc/modexp_wide.cu)
+                         (csrc/modexp_wide.cu: a team of lanes per
+                         exponentiation)
 
 The byte contract is the reference's: values are (B, 33) uint8
 little-endian rows (a base may lie anywhere in [0, 2^264)), exponents
@@ -551,7 +552,10 @@ def wide_dual_pow_fused(
     spec: WideSpec,
 ) -> torch.Tensor:
     """K12 dual pow: (B, val_bytes) u1, u2 in [0, p) and e1, e2 ->
-    (B, val_bytes) u1^e1 * u2^e2 mod p."""
+    (B, val_bytes) u1^e1 * u2^e2 mod p.  A warp of the kernel whose rows
+    all have e2 = 0 (Lagrange rows, u2^0 = 1) skips the second base's
+    table and products; the engine's calls send those rows after the
+    CP rows, so they fill whole warps."""
     b, vb = u1.shape[0], spec.val_bytes
     for name, t in (("u1", u1), ("e1", e1), ("u2", u2), ("e2", e2)):
         _check_bytes(f"wide_dual_pow_fused {name}", t, (b, vb))

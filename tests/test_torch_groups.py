@@ -140,26 +140,31 @@ def test_2048bit_modp14_cpu_only():
 
 
 @pytest.mark.parametrize(
-    "group,seed", [(GROUP384, 7), (GROUP768, 6), (GROUP14, 5)],
-    ids=["384", "768", "2048"],
+    "group,seed,batch",
+    [(GROUP384, 7, WIDE_BATCH), (GROUP768, 6, WIDE_BATCH), (GROUP14, 5, WIDE_BATCH),
+     (GROUP384, 8, 1), (GROUP384, 9, 33)],
+    ids=["384", "768", "2048", "384-B1", "384-B33"],
 )
-def test_wide_group_cuda_engine_matches_pow(group, seed):
+def test_wide_group_cuda_engine_matches_pow(group, seed, batch):
     """Every wide family on the 'cuda' engine (the K12 plain versions
     on a CPU device) against Python's pow, with edge rows: bases 0, 1,
-    p - 1 and unreduced, exponents 0, 1, q, and Lagrange-style dual
-    rows (u2 = 1, e2 = 0)."""
+    p - 1 and unreduced, exponents 0, 1, q, 5 and all-ones, and
+    Lagrange-style dual rows (u2 = 1, e2 = 0); and batches that are not
+    a multiple of a team, a warp or a block of the kernels (1, 33)."""
     rng = random.Random(seed)
     p, q = group.p, group.q
     eng = get_engine("cuda", group, device="cpu")
     assert eng.backend == "cuda" and eng.device == torch.device("cpu")
-    bases = [0, 1, p - 1, p + 3] + [
-        rng.randrange(2, p) for _ in range(WIDE_BATCH - 4)
+    ones = (1 << (8 * mm.layout_for_group(group))) - 1
+    bases = [0, 1, p - 1, p + 3, 2][:batch] + [
+        rng.randrange(2, p) for _ in range(batch - 5)
     ]
-    exps = [0, 1, q, 5] + [rng.randrange(1, q) for _ in range(WIDE_BATCH - 4)]
+    exps = [0, 1, q, 5, ones][:batch] + [rng.randrange(1, q) for _ in range(batch - 5)]
     assert eng.pow_batch(bases, exps) == [pow(b, e, p) for b, e in zip(bases, exps)]
-    h = WIDE_BATCH // 2
-    u2 = bases[h:][:-3] + [1, 1, 1]
-    e2 = exps[h:][:-3] + [0, 0, 0]
+    h = (batch + 1) // 2
+    lag = min(3, h)
+    u2 = (bases[h:] + bases)[: h - lag] + [1] * lag
+    e2 = (exps[h:] + exps)[: h - lag] + [0] * lag
     got = eng.dual_pow_batch(bases[:h], exps[:h], u2, e2)
     assert got == [
         pow(a, x, p) * pow(b, y, p) % p
@@ -170,16 +175,23 @@ def test_wide_group_cuda_engine_matches_pow(group, seed):
 @pytest.mark.parametrize("group", [GROUP384, GROUP768], ids=["384", "768"])
 def test_wide_plain_matches_reference_wide_kernels(group):
     """The plain K12 pow and dual pow against the reference's
-    ``_wide_kernels(lay)`` on the same packed inputs, byte for byte."""
+    ``_wide_kernels(lay)`` on the same packed inputs, byte for byte, and
+    against Python's ``pow``: bases 0, 1, p - 1; exponents q, 0, 1 and
+    all-ones; e2 = 0 beside e1 != 0 and e1 = 0 beside e2 != 0."""
     rng = random.Random(group.p.bit_length())
     lay = ref_mm.layout_for_group(ref_mm.GroupParams(p=group.p, q=group.q, g=group.g))
     vb, b = lay.val_bytes, 12
     assert vb == mm.layout_for_group(group)
     p, q = group.p, group.q
-    u1 = mm._ints_to_val_bytes([0, 1, p - 1] + [rng.randrange(p) for _ in range(b - 3)], vb)
-    u2 = mm._ints_to_val_bytes([rng.randrange(p) for _ in range(b)], vb)
-    e1 = mm._exps_to_bytes_w([q, 0, 1] + [rng.randrange(q) for _ in range(b - 3)], vb)
-    e2 = mm._exps_to_bytes_w([0] * 3 + [rng.randrange(q) for _ in range(b - 3)], vb)
+    ones = (1 << (8 * vb)) - 1
+    ints = (
+        [0, 1, p - 1] + [rng.randrange(p) for _ in range(b - 3)],
+        [q, 0, 1, ones] + [rng.randrange(q) for _ in range(b - 4)],
+        [rng.randrange(p) for _ in range(b)],
+        [0, 5, 0, ones] + [rng.randrange(q) for _ in range(b - 4)],
+    )
+    u1, u2 = (mm._ints_to_val_bytes(x, vb) for x in ints[::2])
+    e1, e2 = (mm._exps_to_bytes_w(x, vb) for x in ints[1::2])
     ref_spec = ref_mm._spec_wide(
         ref_mm.GroupParams(p=group.p, q=group.q, g=group.g), lay
     )
@@ -193,15 +205,20 @@ def test_wide_plain_matches_reference_wide_kernels(group):
     def t(a):
         return torch.from_numpy(np.array(a))
 
+    def as_ints(rows):
+        return [int.from_bytes(r.tobytes(), "little") for r in rows]
+
     want = np.asarray(ref_pow(jnp.asarray(u1), jnp.asarray(e1), *xla_spec))
     got = mx.wide_pow_fused(t(u1), t(e1), spec).numpy()
     assert got.shape == (b, vb) and np.array_equal(got, want)
+    assert as_ints(got) == [pow(x, e, p) for x, e in zip(ints[0], ints[1])]
     want = np.asarray(
         ref_dual(jnp.asarray(u1), jnp.asarray(e1), jnp.asarray(u2),
                  jnp.asarray(e2), *xla_spec)
     )
     got = mx.wide_dual_pow_fused(t(u1), t(e1), t(u2), t(e2), spec).numpy()
     assert np.array_equal(got, want)
+    assert as_ints(got) == [pow(a, x, p) * pow(c, y, p) % p for a, x, c, y in zip(*ints)]
 
 
 def test_384bit_group_full_protocol_cuda():

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, no reference package, no hidden CPU
 fallback.
 
-Importing every module of ``cleisthenes_tpu_torch`` (and chip_smoke.py)
-in a fresh interpreter must leave ``jax`` and ``cleisthenes_tpu`` out of
-``sys.modules``; and on a machine without a GPU the defaults, which put
+Importing every module of ``cleisthenes_tpu_torch`` (and chip_smoke.py,
+wide_sweep.py) in a fresh interpreter must leave ``jax`` and
+``cleisthenes_tpu`` out of ``sys.modules``; and on a machine without a GPU the defaults, which put
 the work on the card, must raise rather than run on the CPU."""
 
 import os
@@ -26,7 +26,7 @@ import cleisthenes_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, wide_sweep
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
