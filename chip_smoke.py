@@ -17,12 +17,16 @@ before printing any result.  It prints, in order:
    forest pads leaves with the empty-leaf digest), each held byte for
    byte against its plain PyTorch version on the same inputs, with
    samples held against ``hashlib``; the modexp entry points — the
-   comb (257 bases: g with 32,768 exponents, 256 bases with 256 each,
-   one table per base as the engine sends them), the dual pow (22,016
-   items, half of them Lagrange rows u2=1, e2=0), the generic pow
-   (5,504 items) and the Montgomery product (16,384) — held against
-   their plain versions and against Python's ``pow`` on a sample, in
-   the default group and, parity only, in a second 256-bit group; the
+   comb at both epochs' round-0 shapes (N=128: 257 bases, g with
+   32,768 exponents and 256 bases with 256 each; N=512: 1,025 bases, g
+   with 524,288 and 1,024 with 1,024 each; one table per base as the
+   engine sends them), the dual pow at both (22,016 and 350,208 rows,
+   half of them Lagrange rows u2=1, e2=0), both also untimed on ragged
+   batches (1, 33, 127, 129 rows; a base with a single exponent), the
+   generic pow (5,504 items) and the Montgomery product (16,384) — held
+   against their plain versions (timed once after a warm-up at N=512)
+   and against Python's ``pow`` on a sample, in the default group and,
+   parity only, in a second 256-bit group; the
    GF(2^16) codec (K11) at the N=512/f=170 epoch's shapes (B=512,
    k=172, n=512, 64 symbols: encode, shared and per-instance decode,
    with the 512-leaf forest and the D=9 branch verify) and, parity
@@ -39,7 +43,8 @@ before printing any result.  It prints, in order:
    events, median of 20 calls after a warm-up; 5 for the 2048-bit
    group), the plain version's (median of 3), launches per call and the
    bound (for a pow or dual pow, from the fewest Montgomery products a
-   fixed-window method needs for the run's exponents);
+   fixed-window method needs for the run's exponents; for the comb, the
+   fewest a comb of any width 2..8 per base needs, ``least_comb``);
 3. three paths through ``LockstepCluster`` with its defaults (the
    'cuda' backend), each committing 3 epochs of random 64-byte
    transactions, every one exactly once, with the launch counts set to
@@ -95,11 +100,6 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # second block is mostly constant padding.
 SHA_OPS_PER_BLOCK = 1383
 SHA_OPS_PER_NODE = 2675
-# 32-bit instructions of one Montgomery product (csrc/modexp.cu
-# ``mont_prod``, 8 x 32-bit CIOS and its conditional subtract), counted
-# by the same script in ``probe_mont``: 205 IMAD, 187 IADD3, 15 SHF,
-# 8 SEL and the rest.
-MONT_OPS = 429
 # the second 256-bit safe prime of the repository's group tests
 P2 = 0x93A40B764F1F5026ADA7C38AA3EF4EE81E01E89F9FE80837B1E370913DA99F13
 # the wide groups of bench.py's wide-group section, with its batches:
@@ -441,25 +441,90 @@ def dual_products(np, u1, e1, u2, e2) -> int:
     return int((n + np.where(n > 0, fold, 0)).sum())
 
 
-def comb_products(np, bases, exps) -> int:
-    """The comb: per base, into the domain, the 252 squarings of the
-    chain and 14 products for each of the 64 table rows; per exponent,
-    a multiply per nonzero nibble after the first, out of the domain."""
-    rows = bases.shape[0]
-    e = exps
-    nz = ((e >> 4) != 0).sum(1) + ((e & 15) != 0).sum(1)
-    folds = int((bases[:, 32] != 0).sum())
-    return rows * (1 + 252 + 64 * 14) + folds + int((np.maximum(nz - 1, 0) + 1).sum())
+def least_comb(np, bases, exps, rows) -> int:
+    """The fewest Montgomery products of a fixed-base comb for these
+    inputs, its width w = 2..8 chosen per base: per base, into the domain
+    (one more product where a 33rd byte folds), the chain's w (r - 1)
+    squarings and the table's r (2^w - 2) products, for r = ceil(b / w)
+    rows of the base's widest exponent of b bits; per exponent, a multiply
+    per nonzero w-bit digit after the first and one out of the domain."""
+    n_b, m = bases.shape[0], exps.shape[0]
+    nzb = exps != 0
+    first = np.where(nzb.any(1), nzb.argmax(1), 32)
+    top = exps[np.arange(m), np.minimum(first, 31)].astype(np.int64)
+    ebits = np.where(first < 32, 8 * (31 - first) + np.floor(np.log2(np.maximum(top, 1))).astype(np.int64) + 1, 0)
+    bbits = np.zeros(n_b, np.int64)
+    np.maximum.at(bbits, rows, ebits)
+    into = 1 + (bases[:, 32] != 0)
+    best = None
+    for w in range(2, 9):
+        per_exp = np.zeros(m, np.int64)
+        for lo in range(0, m, 1 << 17):  # bounded memory at the N=512 shapes
+            bits = np.unpackbits(exps[lo : lo + (1 << 17)], axis=1)
+            bits = np.pad(bits, ((0, 0), ((-256) % w, 0)))
+            nz = bits.reshape(bits.shape[0], -1, w).any(2).sum(1)
+            per_exp[lo : lo + len(nz)] = np.maximum(nz - 1, 0) + 1
+        r = np.maximum(-(-bbits // w), 1)
+        cost = into + w * (r - 1) + r * (2**w - 2) + np.bincount(rows, per_exp, n_b)
+        best = cost if best is None else np.minimum(best, cost)
+    return int(best.sum())
+
+
+# the 256-bit epochs' round-0 modexp calls (tpke.py issue_shares_batch and
+# verify_and_combine_share_groups): the comb's issue wave — g with G
+# exponents, B more bases with E exponents each — and the CP-verify/combine
+# dual pow of D rows, half of them Lagrange rows; key: (G, B, E, D)
+MODEXP_SHAPES = {"n128": (32768, 256, 256, 22016), "n512": (524288, 1024, 1024, 350208)}
+# untimed ragged batches of both: exponents over three bases (the last with
+# one exponent) and dual-pow rows
+MODEXP_RAGGED = (1, 33, 127, 129)
+
+
+def comb_inputs(rnd, p: int, n_g: int, n_b: int, g_b: int, single: bool = False):
+    """(bases, exponents, rows) of a comb call as the engine sends it, a
+    table per distinct base and a row index per exponent: g (4) with n_g
+    exponents, then the edge bases (0, 1, p - 1, p + 5, 2^264 - 1) and
+    random ones up to n_b more with g_b exponents each, and with
+    ``single`` one more base with one exponent; the first exponents are
+    the edge exponents (0, 1, q, 2^256 - 1, 3)."""
+    q = (p - 1) // 2
+    edge_b = [0, 1, p - 1, p + 5, 2**264 - 1]
+    bases = [4] + (edge_b + [rnd.randrange(p) for _ in range(n_b)])[:n_b]
+    rows = [0] * n_g + [1 + i // g_b for i in range(n_b * g_b)]
+    if single:
+        rows.append(len(bases))
+        bases.append(rnd.randrange(p))
+    m = len(rows)
+    exps = ([0, 1, q, 2**256 - 1, 3] + [rnd.randrange(q) for _ in range(m)])[:m]
+    return bases, exps, rows
+
+
+def dual_inputs(rnd, p: int, n: int):
+    """(u1, e1, u2, e2) of n dual-pow rows: the edge rows first (bases 0,
+    1, p - 1, p + 5, 2^264 - 1; exponents 0, 1, q, 2^256 - 1, 3), CP rows,
+    then as many Lagrange rows (u2 = 1, e2 = 0), as the engine sends them."""
+    q = (p - 1) // 2
+    half = n // 2
+    u1 = ([0, 1, p - 1, p + 5, 2**264 - 1] + [rnd.randrange(p) for _ in range(n)])[:n]
+    e1 = ([0, 1, q, 2**256 - 1, 3] + [rnd.randrange(q) for _ in range(n)])[:n]
+    u2 = [rnd.randrange(p) for _ in range(half)] + [1] * (n - half)
+    e2 = [rnd.randrange(q) for _ in range(half)] + [0] * (n - half)
+    return u1, e1, u2, e2
 
 
 def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
-    """The modexp entry points on ``dev`` in the group mod ``p``, at the
-    main path's shapes when ``timed`` (else small, parity only), each
-    held against its plain version and against Python's ``pow`` on a
-    sample; returns {entry point: record}."""
+    """The modexp entry points on ``dev`` in the group mod ``p``, each held
+    against its plain version and against Python's ``pow`` on a sample.
+    When ``timed``: the comb (K9) and the dual pow (K8) at both epochs'
+    shapes (``MODEXP_SHAPES``; keys ``pow_grouped``, ``dual_pow`` for
+    N=128 and ``<entry>@n512``), the generic pow (5,504 items) and the
+    Montgomery product (16,384), then both K8 and K9 untimed on the ragged
+    batches (``<entry>@B<n>``); else small, parity only.  Returns {entry
+    point: record}."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.csrc.sass_ops import MONT_OPS
     from cleisthenes_tpu_torch.ops import modexp_cuda as mx
     from cleisthenes_tpu_torch.ops.modmath import (
         bytes33_to_ints, exps_to_bytes, ints_to_bytes33,
@@ -467,118 +532,108 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
 
     q = (p - 1) // 2
     spec = mx.mont_spec(p)
-    n_g, n_b, g_b = (32768, 256, 256) if timed else (1100, 16, 70)
-    n_dual, n_pow, n_mont = (22016, 5504, 16384) if timed else (1024, 1024, 1024)
+    r_inv = pow(2**256, -1, p)
 
     def put(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    def ints_of(t):
-        return bytes33_to_ints(t.cpu().numpy().reshape(-1, 33))
-
-    def vals(n):
-        return [rnd.randrange(p) for _ in range(n)]
-
-    def exps(n):
-        return [rnd.randrange(q) for _ in range(n)]
-
-    edge_b = [0, 1, p - 1, p + 5, 2**264 - 1]
-    edge_e = [0, 1, q, 2**256 - 1, 3]
-
-    # K9: one round-0 issue wave as the engine sends it: a table per
-    # distinct base, a row index per exponent
-    comb_bases = [4] + edge_b + vals(n_b - len(edge_b))
-    comb_rows = [0] * n_g + [1 + i // g_b for i in range(n_b * g_b)]
-    comb_np = (
-        ints_to_bytes33([b % p for b in comb_bases]),
-        exps_to_bytes(exps(n_g + n_b * g_b)),
-        np.array(comb_rows, dtype=np.int32),
-    )
-    comb = tuple(put(a) for a in comb_np)
-    # K8: CP checks (u1 = g or a base) and as many Lagrange rows (u2=1, e2=0)
-    half = n_dual // 2
-    u1_i = edge_b + vals(n_dual - len(edge_b))
-    e1_i = edge_e + exps(n_dual - len(edge_e))
-    u2_i = vals(half) + [1] * (n_dual - half)
-    e2_i = exps(half) + [0] * (n_dual - half)
-    dual_np = (ints_to_bytes33(u1_i), exps_to_bytes(e1_i), ints_to_bytes33(u2_i), exps_to_bytes(e2_i))
-    dual = tuple(put(a) for a in dual_np)
-    # K7 and K10
-    pow_np = (ints_to_bytes33(edge_b + vals(n_pow - len(edge_b))), exps_to_bytes(edge_e + exps(n_pow - len(edge_e))))
-    pw = tuple(put(a) for a in pow_np)
-    mont_np = (ints_to_bytes33(vals(n_mont)), ints_to_bytes33(vals(n_mont)))
-    mm_ = tuple(put(a) for a in mont_np)
-
     def as_ints(a):
         return [int.from_bytes(r.tobytes(), "big") for r in a]
 
-    r_inv = pow(2**256, -1, p)
-    cases = {
-        "pow_grouped": (
-            lambda: mx.pow_fused_grouped(*comb, spec),
-            lambda: mx.pow_fused_grouped_plain(*comb, spec),
-            comb_np[0].size + comb_np[1].size + comb_np[2].nbytes + len(comb_rows) * 33,
-            comb_products(np, comb_np[0], comb_np[1]),
-        ),
-        "dual_pow": (
-            lambda: mx.dual_pow_fused(*dual, spec),
-            lambda: mx.dual_pow_fused_plain(*dual, spec),
-            n_dual * (3 * 33 + 2 * 32), dual_products(np, *dual_np),
-        ),
-        "pow": (
+    def comb_case(bases, exps, rows):
+        arrs = (ints_to_bytes33([b % p for b in bases]), exps_to_bytes(exps),
+                np.array(rows, dtype=np.int32))
+        t = tuple(put(a) for a in arrs)
+        return (
+            lambda: mx.pow_fused_grouped(*t, spec),
+            lambda: mx.pow_fused_grouped_plain(*t, spec),
+            arrs[0].size + arrs[1].size + arrs[2].nbytes + len(rows) * 33,
+            lambda: least_comb(np, arrs[0], arrs[1], arrs[2]),
+            lambda i: pow(bases[rows[i]], exps[i], p),
+        )
+
+    def dual_case(u1, e1, u2, e2):
+        arrs = (ints_to_bytes33(u1), exps_to_bytes(e1), ints_to_bytes33(u2), exps_to_bytes(e2))
+        t = tuple(put(a) for a in arrs)
+        return (
+            lambda: mx.dual_pow_fused(*t, spec),
+            lambda: mx.dual_pow_fused_plain(*t, spec),
+            len(u1) * (3 * 33 + 2 * 32),
+            lambda: dual_products(np, *arrs),
+            lambda i: pow(u1[i], e1[i], p) * pow(u2[i], e2[i], p) % p,
+        )
+
+    cases = {}  # name: (kernel, plain, bytes, products, pow of item i, plain reps)
+    shapes = MODEXP_SHAPES.items() if timed else [("small", (1100, 16, 70, 1024))]
+    for tag, (n_g, n_b, g_b, n_dual) in shapes:
+        suffix = "" if tag in ("n128", "small") else f"@{tag}"
+        reps = 1 if tag == "n512" else 3
+        cases["pow_grouped" + suffix] = comb_case(*comb_inputs(rnd, p, n_g, n_b, g_b)) + (reps,)
+        cases["dual_pow" + suffix] = dual_case(*dual_inputs(rnd, p, n_dual)) + (reps,)
+        if suffix:
+            continue
+        n_pow, n_mont = (5504, 16384) if timed else (1024, 1024)
+        edge_b, edge_e = [0, 1, p - 1, p + 5, 2**264 - 1], [0, 1, q, 2**256 - 1, 3]
+        pb = edge_b + [rnd.randrange(p) for _ in range(n_pow - 5)]
+        pe = edge_e + [rnd.randrange(q) for _ in range(n_pow - 5)]
+        pow_np = (ints_to_bytes33(pb), exps_to_bytes(pe))
+        pw = tuple(put(a) for a in pow_np)
+        cases["pow"] = (
             lambda: mx.pow_fused(*pw, spec),
             lambda: mx.pow_fused_plain(*pw, spec),
-            n_pow * (33 + 32 + 33), pow_products(np, *pow_np),
-        ),
-        "mont_mul": (
+            n_pow * (33 + 32 + 33), lambda: pow_products(np, *pow_np),
+            lambda i: pow(pb[i], pe[i], p), 3,
+        )
+        xs = [rnd.randrange(p) for _ in range(n_mont)]
+        ys = [rnd.randrange(p) for _ in range(n_mont)]
+        mm_ = (put(ints_to_bytes33(xs)), put(ints_to_bytes33(ys)))
+        cases["mont_mul"] = (
             lambda: mx.mont_mul_batch(*mm_, spec),
             lambda: mx.mont_mul_batch_plain(*mm_, spec),
-            n_mont * 3 * 33, n_mont,
-        ),
-    }
-
-    def sample_ok(name, got) -> bool:
-        """Python's pow on 48 sampled items."""
-        res = ints_of(got)
-        if name == "pow_grouped":
-            flat = as_ints(comb_np[1])
-            idx = list(range(n_g - 3, n_g + 3)) + rnd.sample(range(len(res)), 42)
-            return all(res[i] == pow(comb_bases[comb_rows[i]], flat[i], p) for i in idx)
-        idx = list(range(5)) + rnd.sample(range(5, len(res)), 43)
-        if name == "pow":
-            bs, es = bytes33_to_ints(pow_np[0]), as_ints(pow_np[1])
-            return all(res[i] == pow(bs[i], es[i], p) for i in idx)
-        if name == "dual_pow":
-            a, x = bytes33_to_ints(dual_np[0]), as_ints(dual_np[1])
-            b, y = bytes33_to_ints(dual_np[2]), as_ints(dual_np[3])
-            return all(res[i] == pow(a[i], x[i], p) * pow(b[i], y[i], p) % p for i in idx)
-        xs, ys = bytes33_to_ints(mont_np[0]), bytes33_to_ints(mont_np[1])
-        return all(res[i] == xs[i] * ys[i] * r_inv % p for i in idx)
+            n_mont * 3 * 33, lambda: n_mont,
+            lambda i: xs[i] * ys[i] * r_inv % p, 3,
+        )
+    if timed:
+        for n in MODEXP_RAGGED:
+            # n = 1: g alone with one exponent; else g, one more base and
+            # a base with a single exponent
+            rest = n - 1
+            comb = comb_inputs(rnd, p, rest - rest // 3, 1, rest // 3, True) if n > 1 else \
+                comb_inputs(rnd, p, 1, 0, 0)
+            cases[f"pow_grouped@B{n}"] = comb_case(*comb) + (0,)
+            cases[f"dual_pow@B{n}"] = dual_case(*dual_inputs(rnd, p, n)) + (0,)
 
     out = {}
-    for name, (kern, plain, nbytes, products) in cases.items():
+    for name, (kern, plain, nbytes, products, want, reps) in cases.items():
         before = sum(COUNTS.kernels.values())
         got = kern()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         per_call = sum(COUNTS.kernels.values()) - before
-        want = plain()
-        equal = torch.equal(got, want)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        rec = {"equal": equal and sample_ok(name, got), "max_abs_err": float(err),
+        plain_out = plain()
+        equal = torch.equal(got, plain_out)
+        err = int((got.to(torch.int64) - plain_out.to(torch.int64)).abs().max())
+        res = bytes33_to_ints(got.cpu().numpy().reshape(-1, 33))
+        n = len(res)
+        idx = sorted(set(range(min(n, 6))) | set(range(max(0, n - 3), n))
+                     | set(rnd.sample(range(n), min(n, 40))))
+        sample_ok = all(res[i] == want(i) for i in idx)
+        rec = {"equal": equal and sample_ok, "max_abs_err": float(err),
                "launches_per_call": per_call}
-        if timed:
-            rec["kernel_ms"] = time_ms(torch, kern, 20)
-            rec["plain_ms"] = time_ms(torch, plain, 3)
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, products * MONT_OPS)
         line = (
             f"kernel {name} p={hex(p)[:10]}.. shape={tuple(got.shape)}: "
             f"equal={rec['equal']} launches_per_call={per_call}"
         )
-        if timed:
+        if timed and reps:
+            n_prod = products()
+            rec["kernel_ms"] = time_ms(torch, kern, 20)
+            rec["plain_ms"] = time_ms(torch, plain, reps)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, n_prod * MONT_OPS)
+            rec["products"] = n_prod
             line += (
-                f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']}"
-                f" bound_ms={rec['bound_ms']} ({rec['bound_by']}, {products} products)"
+                f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']} (median of {reps})"
+                f" bound_ms={rec['bound_ms']} ({rec['bound_by']}, {n_prod} products)"
+                f" x_bound={rec['kernel_ms'] / rec['bound_ms']}"
             )
         print(line, flush=True)
         out[name] = rec

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 ``cleisthenes_tpu_torch/_build/`` (git-ignored), one shared library per
-source keyed by the source's hash, and loads with ``ctypes``: a plain C
+source keyed by the hash of the source and of the headers the sources
+share (``csrc/mont_team.cuh``), and loads with ``ctypes``: a plain C
 interface, no PyTorch headers, so a build takes seconds.  The first
 ``load()`` in a process builds every missing library at once, one
 ``nvcc`` per source started together, so ``python3 chip_smoke.py``
@@ -114,10 +115,13 @@ def nvcc_path() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """The library of ``src``, keyed by its bytes, the shared headers'
+    (``csrc/*.cuh``, which every source may include) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

@@ -2,14 +2,15 @@
 //
 // Replaces the TPU kernels of cleisthenes_tpu/ops/modmath.py:
 //   K7  _pow_fused (:551)          pow_fused: b^e mod p, square-and-multiply
-//   K8  _dual_pow_fused (:592)     dual_pow_fused: u1^e1 * u2^e2 mod p
-//                                  (Shamir's trick: one square and one
-//                                  select-multiply per exponent bit)
+//   K8  _dual_pow_fused (:592)     dual_pow_fused: u1^e1 * u2^e2 mod p, a
+//                                  fixed window per base over one chain of
+//                                  squarings
 //   K9  _pow_fused_grouped (:639)  comb_table + comb_apply: the fixed-base
-//                                  comb, T[k][j] = base^(j * 16^k) per
-//                                  distinct base, then 64 table multiplies
-//                                  per exponent, each exponent naming its
-//                                  base's table by an int32 row index
+//                                  comb of width W, T[k][j] = base^(j 2^(W k))
+//                                  per distinct base, then ceil(256 / W) - 1
+//                                  table products per exponent, each
+//                                  exponent naming its base's table by an
+//                                  int32 row index
 //   K10 mont_mul_batch (:504)      mont_mul: one Montgomery product
 // all on the Montgomery core the reference builds in _make_mont_mul (:425).
 //
@@ -20,40 +21,60 @@
 // library serves every odd modulus of 256 bits or fewer.
 //
 // Layout.  The reference's 22 x 12-bit lazy-carry limbs are shaped for the
-// TPU's int32 vector unit.  Here a value is 8 x 32-bit limbs in registers,
-// one thread per exponentiation, and the product is CIOS Montgomery with
-// 32 x 32 -> 64-bit multiplies.  Two hazards of that layout:
+// TPU's int32 vector unit.  Here a value is 8 x 32-bit limbs in registers
+// and the product is CIOS Montgomery with 32 x 32 -> 64-bit multiplies, the
+// team product of csrc/mont_team.cuh (one lane, or a team of lanes that
+// share a value's words).  Two hazards of that layout:
 // - p's top bit may be set (the default p = 0xFFB2...), so with R = 2^256 the
 //   CIOS intermediate reaches 2p > 2^256: it keeps a ninth (carry) word and
 //   the final conditional subtract compares all 257 bits;
 // - an input value may lie in [p, 2^264) (the reference's device path passes
-//   such bases through unreduced): to_mont folds the 33rd byte h as
+//   such bases through unreduced): team_to_mont folds the 33rd byte h as
 //   x*R = lo*R + h*R^2, i.e. mont(lo, R^2) + mont(h, R^3) mod p.
 //
-// Bound on the H100: integer multiply work.  One Montgomery product is the
-// number of 32-bit instructions csrc/sass_ops.py counts in probe_mont; an
-// exponentiation is ~512 products on ~100 bytes of I/O, so every kernel here
-// is bound by operations at the INT32 rate (132 SMs x 64 lanes x 1.98 GHz;
-// 32-bit IMAD issues at 64 per clock per SM on compute capability 9.0, the
-// CUDA C++ Programming Guide's arithmetic-throughput table), never by bytes.
-// The design keeps every limb of every operand in registers: the exponent is
-// read one 32-bit word at a time from global memory, the comb table (32 KiB
-// per base, L2-resident) is read as two 16-byte loads per multiply, and no
-// value touches local memory.  The comb's table build is a chain of 252
-// dependent squarings per base (one thread), so it is bound by latency, not
-// by throughput; the 64 threads of a block then fill the base's 64 rows.
+// What bounds each kernel on the H100.  An exponentiation is hundreds of
+// Montgomery products on ~100 bytes of I/O, so the work is 32-bit integer
+// instructions (csrc/sass_ops.py counts a one-lane product's: 431) at the
+// INT32 rate (132 SMs x 64 lanes x 1.98 GHz; the CUDA C++ Programming
+// Guide's arithmetic-throughput table), never bytes; where too few products
+// run at once, the latency of a product's chain of dependent instructions.
+// - K8 at a call of many waves (the N=512 epoch's 350,208 rows) is bound by
+//   issue: DualPlan keeps a lane a row with its base tables (2^WD entries
+//   each, 3-bit window) in shared memory, six blocks of 64 an SM; a warp of
+//   Lagrange rows (u2 = 1, e2 = 0, sent last by the engine) builds no
+//   second table and makes none of its products, and a digit that is zero
+//   in the whole warp is skipped.  A call of one wave (the N=128 epoch's
+//   22,016 rows) is bound by the latency of its rows' ~400 dependent
+//   products: DualSmallPlan's 4-bit window makes fewer of them, in blocks
+//   of 32 that spread the rows evenly over the SMs.  In modexp_sweep.py
+//   teams of 2 or 4 lanes ran no faster at N=128 and slower at N=512.
+// - K9's table build is bound by latency: the chain base^(2^(W k)) is
+//   W (rows - 1) dependent squarings per base; a team of 4 lanes a product
+//   shortens each (shuffles make 8 slower), and the block's other warps
+//   fill each group of rows as the chain passes it.  The accumulation is
+//   bound by issue (one lane an exponent, the next table entry's load
+//   issued before the current product); the width W = 7 makes the
+//   fewest products at both epochs' shapes among the widths whose tables
+//   all fit the 50 MB L2 at N=128 (257 x 148 KiB); at N=512 (1,025 tables)
+//   a block's consecutive exponents share a base, so the tables in use at
+//   once stay in L2.
+// - K7 and K10 keep the first design's schedule, one thread a row (K7 the
+//   binary method), on the one-lane product.
+// ptxas's registers and spills per kernel are printed by csrc/sass_ops.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "mont_team.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWords = 8;          // 8 x 32-bit limbs: R = 2^256
 constexpr int kSpecWords = 33;     // p, pinv, one, r2, r3
-constexpr int kCombRows = 64;      // nibble positions of a 256-bit exponent
-constexpr int kCombCols = 16;      // nibble values
+constexpr int kExpBytes = 32;      // an exponent row (big-endian)
+constexpr int kValBytes = 33;      // a value row (little-endian, 264-bit)
 
 struct MontSpec {
   uint32_t p[kWords];
@@ -63,280 +84,335 @@ struct MontSpec {
   uint32_t r3[kWords];   // R^3 mod p: folds an input's 33rd byte
 };
 
-// r = a * b / R mod p, for a < 2^256 and b < p; r may alias a or b.
-__device__ __forceinline__ void mont_prod(uint32_t r[kWords],
-                                         const uint32_t a[kWords],
-                                         const uint32_t b[kWords],
-                                         const MontSpec& s) {
-  uint32_t t[kWords + 2];
-#pragma unroll
-  for (int j = 0; j < kWords + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      c += (uint64_t)a[i] * b[j] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[kWords];
-    t[kWords] = (uint32_t)c;
-    t[kWords + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * s.pinv;
-    c = ((uint64_t)m * s.p[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < kWords; ++j) {
-      c += (uint64_t)m * s.p[j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[kWords];
-    t[kWords - 1] = (uint32_t)c;
-    t[kWords] = t[kWords + 1] + (uint32_t)(c >> 32);
-  }
-  // t < 2p < 2^257: subtract p once if t >= p, over all 257 bits
-  uint32_t d[kWords];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    const uint64_t x = (uint64_t)t[j] - s.p[j] - borrow;
-    d[j] = (uint32_t)x;
-    borrow = (uint32_t)(x >> 63);
-  }
-  const bool ge = t[kWords] >= borrow;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) r[j] = ge ? d[j] : t[j];
+// The team product (csrc/mont_team.cuh, 8 words) serves every kernel here:
+// with one lane (Plan1) K7 and K10 below, one thread a row, and K8 and K9
+// with their plans.
+using Plan1 = Plan<8, 32, 1, 1, 1, kThreads, 1>;
+
+// This lane's K words of a staged 33-byte little-endian value row (its low
+// 32 bytes); returns the 33rd byte.
+template <class P>
+__device__ __forceinline__ uint32_t value_words(const uint8_t* row, int tl,
+                                                uint32_t w[P::K]) {
+  row_words<P>(row, tl, w);
+  return row[kExpBytes];
 }
 
-// r = (x + y) mod p for x, y < p.
-__device__ __forceinline__ void mod_add(uint32_t r[kWords],
-                                        const uint32_t x[kWords],
-                                        const uint32_t y[kWords],
-                                        const MontSpec& s) {
-  uint32_t t[kWords];
-  uint64_t c = 0;
+// x * R mod p across the team for the 264-bit value lo + h * 2^256 (h the
+// same in every lane of a team): mont(lo, R^2) + mont(h, R^3).  Every lane
+// of the warp calls it.
+template <class P>
+__device__ __forceinline__ void team_to_mont(uint32_t r[P::K], const uint32_t lo[P::K],
+                                             uint32_t h, const MontSpec& s,
+                                             const Lane<P>& L) {
+  uint32_t y[P::K];
+  spec_slice<P>(s.r2, L.tl, y);
+  if (__any_sync(kFull, h != 0)) {
+    uint32_t hv[P::K], z[P::K];
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    c += (uint64_t)x[j] + y[j];
-    t[j] = (uint32_t)c;
-    c >>= 32;
+    for (int k = 0; k < P::K; ++k) hv[k] = (L.tl == 0 && k == 0) ? h : 0u;
+    spec_slice<P>(s.r3, L.tl, z);
+    team_prod<P>(z, hv, z, L);
+    team_prod<P>(r, lo, y, L);
+    team_add<P>(r, r, z, L);
+  } else {
+    team_prod<P>(r, lo, y, L);
   }
-  const uint32_t top = (uint32_t)c;
-  uint32_t d[kWords];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    const uint64_t v = (uint64_t)t[j] - s.p[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  const bool ge = top >= borrow;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) r[j] = ge ? d[j] : t[j];
-}
-
-__device__ __forceinline__ void copy8(uint32_t r[kWords], const uint32_t x[kWords]) {
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) r[j] = x[j];
-}
-
-// A 33-byte little-endian value: low 256 bits into lo, byte 32 into hi.
-__device__ __forceinline__ void load33(const uint8_t* src, uint32_t lo[kWords],
-                                       uint32_t& hi) {
-#pragma unroll
-  for (int w = 0; w < kWords; ++w)
-    lo[w] = (uint32_t)src[4 * w] | ((uint32_t)src[4 * w + 1] << 8) |
-            ((uint32_t)src[4 * w + 2] << 16) | ((uint32_t)src[4 * w + 3] << 24);
-  hi = src[32];
 }
 
 // x < p as a 33-byte little-endian row (byte 32 is zero).
-__device__ __forceinline__ void store33(uint8_t* dst, const uint32_t x[kWords]) {
-#pragma unroll
-  for (int w = 0; w < kWords; ++w) {
-    dst[4 * w] = (uint8_t)x[w];
-    dst[4 * w + 1] = (uint8_t)(x[w] >> 8);
-    dst[4 * w + 2] = (uint8_t)(x[w] >> 16);
-    dst[4 * w + 3] = (uint8_t)(x[w] >> 24);
-  }
-  dst[32] = 0;
-}
-
-// Word wi (0 = most significant) of a 32-byte big-endian exponent row.
-__device__ __forceinline__ uint32_t exp_word(const uint8_t* e, int wi) {
-  const uint8_t* q = e + 4 * wi;
-  return ((uint32_t)q[0] << 24) | ((uint32_t)q[1] << 16) |
-         ((uint32_t)q[2] << 8) | (uint32_t)q[3];
-}
-
-// x * R mod p for the 264-bit value lo + hi * 2^256.
-__device__ __forceinline__ void to_mont(uint32_t r[kWords], const uint32_t lo[kWords],
-                                        uint32_t hi, const MontSpec& s) {
-  uint32_t h[kWords] = {hi, 0, 0, 0, 0, 0, 0, 0};
-  uint32_t a[kWords], b[kWords];
-  mont_prod(a, lo, s.r2, s);
-  mont_prod(b, h, s.r3, s);
-  mod_add(r, a, b, s);
-}
-
-// x / R mod p: leave the Montgomery domain.
-__device__ __forceinline__ void from_mont(uint32_t r[kWords], const uint32_t x[kWords],
-                                          const MontSpec& s) {
-  const uint32_t one[kWords] = {1, 0, 0, 0, 0, 0, 0, 0};
-  mont_prod(r, x, one, s);
+__device__ __forceinline__ void store_value(uint8_t* dst, const uint32_t x[kWords]) {
+  row_bytes<Plan1>(dst, 0, x);
+  dst[kExpBytes] = 0;
 }
 
 __global__ void mont_mul_kernel(const uint8_t* __restrict__ a,
                                 const uint8_t* __restrict__ b,
                                 uint8_t* __restrict__ out, long long n,
-                                MontSpec s) {
+                                const __grid_constant__ MontSpec s) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  uint32_t x[kWords], y[kWords], hx, hy;
-  load33(a + i * 33, x, hx);
-  load33(b + i * 33, y, hy);
-  mont_prod(x, x, y, s);
-  store33(out + i * 33, x);
+  const Lane<Plan1> L = make_lane<Plan1>(s);
+  uint32_t x[kWords], y[kWords];
+  value_words<Plan1>(a + i * kValBytes, 0, x);
+  value_words<Plan1>(b + i * kValBytes, 0, y);
+  team_prod<Plan1>(x, x, y, L);
+  store_value(out + i * kValBytes, x);
 }
 
+// K7: square-and-multiply over the exponent's bits.  Every lane of a warp
+// runs to the end (team_to_mont votes across the warp): a lane past the
+// last row repeats it and stores nothing.
 __global__ void pow_kernel(const uint8_t* __restrict__ base,
                            const uint8_t* __restrict__ exp,
-                           uint8_t* __restrict__ out, long long n, MontSpec s) {
+                           uint8_t* __restrict__ out, long long n,
+                           const __grid_constant__ MontSpec s) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  uint32_t lo[kWords], hi, bm[kWords], acc[kWords], m[kWords];
-  load33(base + i * 33, lo, hi);
-  to_mont(bm, lo, hi, s);
-  copy8(acc, s.one);
-  const uint8_t* e = exp + i * 32;
+  const long long row = i < n ? i : n - 1;
+  const Lane<Plan1> L = make_lane<Plan1>(s);
+  uint32_t bm[kWords], acc[kWords], m[kWords];
+  const uint32_t h = value_words<Plan1>(base + row * kValBytes, 0, bm);
+  team_to_mont<Plan1>(bm, bm, h, s, L);
+  spec_slice<Plan1>(s.one, 0, acc);
+  const uint8_t* e = exp + row * kExpBytes;
 #pragma unroll 1
-  for (int wi = 0; wi < kWords; ++wi) {
-    const uint32_t word = exp_word(e, wi);
+  for (int byte = 0; byte < kExpBytes; ++byte) {
+    const uint32_t v = e[byte];
 #pragma unroll 1
-    for (int bit = 31; bit >= 0; --bit) {
-      mont_prod(acc, acc, acc, s);
-      const bool set = (word >> bit) & 1u;
+    for (int bit = 7; bit >= 0; --bit) {
+      team_prod<Plan1>(acc, acc, acc, L);
+      const bool set = (v >> bit) & 1u;
 #pragma unroll
       for (int j = 0; j < kWords; ++j) m[j] = set ? bm[j] : s.one[j];
-      mont_prod(acc, acc, m, s);
+      team_prod<Plan1>(acc, acc, m, L);
     }
   }
-  from_mont(acc, acc, s);
-  store33(out + i * 33, acc);
+  unit_slice<Plan1>(0, m);
+  team_prod<Plan1>(acc, acc, m, L);
+  if (i < n) store_value(out + i * kValBytes, acc);
 }
 
-__global__ void dual_pow_kernel(const uint8_t* __restrict__ u1,
-                                const uint8_t* __restrict__ e1,
-                                const uint8_t* __restrict__ u2,
-                                const uint8_t* __restrict__ e2,
-                                uint8_t* __restrict__ out, long long n,
-                                MontSpec s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  uint32_t lo[kWords], hi, a1[kWords], a2[kWords], a12[kWords], acc[kWords],
-      m[kWords];
-  load33(u1 + i * 33, lo, hi);
-  to_mont(a1, lo, hi, s);
-  load33(u2 + i * 33, lo, hi);
-  to_mont(a2, lo, hi, s);
-  mont_prod(a12, a1, a2, s);
-  copy8(acc, s.one);
-  const uint8_t* x1 = e1 + i * 32;
-  const uint8_t* x2 = e2 + i * 32;
-#pragma unroll 1
-  for (int wi = 0; wi < kWords; ++wi) {
-    const uint32_t w1 = exp_word(x1, wi);
-    const uint32_t w2 = exp_word(x2, wi);
-#pragma unroll 1
-    for (int bit = 31; bit >= 0; --bit) {
-      mont_prod(acc, acc, acc, s);
-      const bool b1 = (w1 >> bit) & 1u;
-      const bool b2 = (w2 >> bit) & 1u;
-#pragma unroll
-      for (int j = 0; j < kWords; ++j)
-        m[j] = b1 ? (b2 ? a12[j] : a1[j]) : (b2 ? a2[j] : s.one[j]);
-      mont_prod(acc, acc, m, s);
-    }
-  }
-  from_mont(acc, acc, s);
-  store33(out + i * 33, acc);
+// K8's and K9's plans: a plan's VB is the 32-byte exponent row (a value
+// row adds the 33rd byte that team_to_mont folds).  The plans (csrc/sass_ops.py, modexp_sweep.py and the tests read them from
+// these lines): Plan<NW, VB, T, W, WD, THREADS, MIN_BLOCKS>.  K8: a team of
+// T lanes a row and a table of 2^WD entries per base, DualSmallPlan for a
+// call that fits one wave of its resident blocks, DualPlan for a longer
+// one (dual_pow_fused); K9: the chain's team T, the comb's width W (its
+// table T[k][j] = base^(j 2^(W k)) has ceil(256 / W) rows of 2^W entries)
+// and comb_apply's block.
+using DualPlan = Plan<8, 32, 1, 3, 3, 64, 6>;
+using DualSmallPlan = Plan<8, 32, 1, 4, 4, 32, 6>;
+using CombPlan = Plan<8, 32, 4, 7, 7, 128, 4>;
+
+__host__ __device__ constexpr int comb_rows(int w) { return (8 * kExpBytes + w - 1) / w; }
+
+// Shared memory of a dual-pow launch: both staged exponent rows, then a
+// table of 2^WD entries per base (K words a lane, lane index fastest).  The
+// table area first stages the value rows and last the results.
+template <class P>
+constexpr int dual_smem() {
+  return 2 * round16(P::TEAMS * kExpBytes) + 2 * (1 << P::WD) * P::K * P::THREADS * 4;
 }
 
-// One block of kCombRows threads per base row: thread 0 walks the chain
-// s_k = base^(16^k) (4 squarings a step) into shared memory, then thread k
-// writes row k of the table, T[k][j] = s_k^j (Montgomery domain).
-__global__ void comb_table_kernel(const uint8_t* __restrict__ bases,
-                                  uint32_t* __restrict__ table, MontSpec s) {
-  __shared__ uint32_t s_pow[kCombRows][kWords];
-  const long long row = blockIdx.x;
-  const int k = threadIdx.x;
-  if (k == 0) {
-    uint32_t lo[kWords], hi, x[kWords];
-    load33(bases + row * 33, lo, hi);
-    to_mont(x, lo, hi, s);
-#pragma unroll 1
-    for (int kk = 0; kk < kCombRows; ++kk) {
-      if (kk > 0) {
-#pragma unroll 1
-        for (int q = 0; q < 4; ++q) mont_prod(x, x, x, s);
-      }
-#pragma unroll
-      for (int j = 0; j < kWords; ++j) s_pow[kk][j] = x[j];
-    }
-  }
+// K8: out = u1^e1 * u2^e2 mod p, a team of P::T lanes a row.  Both bases'
+// tables, then one chain of squarings over the warp's digit positions from
+// its top nonzero one, with a product for each base's digit unless the
+// whole warp's digit is zero there: a warp of Lagrange rows (u2 = 1,
+// e2 = 0) builds no second table and makes none of its products.
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
+dual_pow_kernel(const uint8_t* __restrict__ u1, const uint8_t* __restrict__ e1,
+                const uint8_t* __restrict__ u2, const uint8_t* __restrict__ e2,
+                uint8_t* __restrict__ out, long long n,
+                const __grid_constant__ MontSpec s) {
+  constexpr int K = P::K, W = P::WD;
+  constexpr int EROWS = round16(P::TEAMS * kExpBytes);
+  constexpr int VROWS = round16(P::TEAMS * kValBytes);
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ex1 = smem;
+  uint8_t* ex2 = smem + EROWS;
+  uint32_t* tab1 = reinterpret_cast<uint32_t*>(smem + 2 * EROWS);
+  uint32_t* tab2 = tab1 + (1 << W) * K * P::THREADS;
+  uint8_t* buf = reinterpret_cast<uint8_t*>(tab1);  // values in, results out
+  const long long first = (long long)blockIdx.x * P::TEAMS;
+  const int rows = (int)(n - first < P::TEAMS ? n - first : P::TEAMS);
+  stage_in<P>(ex1, e1 + first * kExpBytes, rows * kExpBytes, P::TEAMS * kExpBytes);
+  stage_in<P>(ex2, e2 + first * kExpBytes, rows * kExpBytes, P::TEAMS * kExpBytes);
+  stage_in<P>(buf, u1 + first * kValBytes, rows * kValBytes, P::TEAMS * kValBytes);
+  stage_in<P>(buf + VROWS, u2 + first * kValBytes, rows * kValBytes,
+              P::TEAMS * kValBytes);
   __syncthreads();
-  uint32_t sk[kWords], cur[kWords];
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) sk[j] = s_pow[k][j];
-  uint4* dst = reinterpret_cast<uint4*>(
-      table + (row * kCombRows + k) * (long long)(kCombCols * kWords));
-  dst[0] = make_uint4(s.one[0], s.one[1], s.one[2], s.one[3]);
-  dst[1] = make_uint4(s.one[4], s.one[5], s.one[6], s.one[7]);
-  dst[2] = make_uint4(sk[0], sk[1], sk[2], sk[3]);
-  dst[3] = make_uint4(sk[4], sk[5], sk[6], sk[7]);
-  copy8(cur, sk);
+  const Lane<P> L = make_lane<P>(s);
+  const int team = threadIdx.x / P::T;
+  const uint8_t* er1 = ex1 + team * kExpBytes;
+  const uint8_t* er2 = ex2 + team * kExpBytes;
+  uint32_t x1[K], x2[K], y[K], acc[K];
+  const uint32_t h1 = value_words<P>(buf + team * kValBytes, L.tl, x1);
+  const uint32_t h2 = value_words<P>(buf + VROWS + team * kValBytes, L.tl, x2);
+  const int top1 = top_digit<P, W>(er1);
+  const int top2 = top_digit<P, W>(er2);
+  const int top = warp_max(top1 > top2 ? top1 : top2);
+  const bool any1 = __any_sync(kFull, top1 >= 0);
+  const bool any2 = __any_sync(kFull, top2 >= 0);
+  __syncthreads();  // the values are read: the tables take the area
+  spec_slice<P>(s.one, L.tl, acc);
+  if (top >= 0) {
+    store_entry<P>(tab1, 0, acc);
+    store_entry<P>(tab2, 0, acc);
+    if (any1) {
+      team_to_mont<P>(x1, x1, h1, s, L);
+      build_table<P, W>(tab1, x1, L);
+    }
+    if (any2) {
+      team_to_mont<P>(x2, x2, h2, s, L);
+      build_table<P, W>(tab2, x2, L);
+    }
+    load_entry<P>(tab1, digit_at<P, W>(er1, top), acc);
 #pragma unroll 1
-  for (int j = 2; j < kCombCols; ++j) {
-    mont_prod(cur, cur, sk, s);
-    dst[2 * j] = make_uint4(cur[0], cur[1], cur[2], cur[3]);
-    dst[2 * j + 1] = make_uint4(cur[4], cur[5], cur[6], cur[7]);
+    for (int d = top;; --d) {
+      const uint32_t d2 = digit_at<P, W>(er2, d);
+      if (__any_sync(kFull, d2 != 0)) {
+        load_entry<P>(tab2, (int)d2, y);
+        team_prod<P>(acc, acc, y, L);
+      }
+      if (d == 0) break;
+#pragma unroll 1
+      for (int q = 0; q < W; ++q) team_prod<P>(acc, acc, acc, L);
+      const uint32_t d1 = digit_at<P, W>(er1, d - 1);
+      if (__any_sync(kFull, d1 != 0)) {
+        load_entry<P>(tab1, (int)d1, y);
+        team_prod<P>(acc, acc, y, L);
+      }
+    }
+  }
+  unit_slice<P>(L.tl, y);
+  team_prod<P>(acc, acc, y, L);
+  __syncthreads();  // every table read is done: the area takes the results
+  row_bytes<P>(buf + team * kValBytes, L.tl, acc);
+  if (L.tl == 0) buf[team * kValBytes + kExpBytes] = 0;
+  __syncthreads();
+  stage_out<P>(out + first * kValBytes, buf, rows * kValBytes);
+}
+
+// Named barriers (PTX bar.arrive / bar.sync): a producer warp announces
+// without waiting, consumers wait for it; n counts the threads of both.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// K9, table: one block of kTableThreads per base row.  Warp 0 walks the
+// chain s_k = base^(2^(W k)), W squarings a row, as teams of P::T lanes
+// (every team the same chain; team 0 keeps each s_k in shared memory), so
+// the chain's latency is that of a team product.  The other warps fill the
+// rows meanwhile, kFillPhases groups of them, each as soon as the chain has
+// passed it (a named barrier per group): T[k][0] = R mod p, T[k][1] = s_k,
+// and in W rounds over the group's rows the entries j in (h, 2h] as
+// T[k][h] T[k][j - h], h = 1, 2, 4, ..., one lane a product.  Only the last
+// group's fill follows the chain.
+constexpr int kTableThreads = 256;
+constexpr int kFillThreads = kTableThreads - 32;
+constexpr int kFillPhases = 6;
+constexpr int kFillBarrier = 15;  // the fill warps' own; 1..kFillPhases: the groups'
+static_assert(kFillPhases + 1 < kFillBarrier, "named barrier ids");
+
+template <class P>
+__global__ void __launch_bounds__(kTableThreads)
+comb_table_kernel(const uint8_t* __restrict__ bases, uint32_t* table,
+                  const __grid_constant__ MontSpec s) {
+  constexpr int W = P::W, ROWS = comb_rows(W), COLS = 1 << W, K = P::K;
+  using P1 = Plan<8, 32, 1, W, W, kTableThreads, 1>;
+  __shared__ uint32_t chain[ROWS][kWords];
+  // entries are read back in later rounds: plain loads, never the
+  // read-only path
+  uint4* tab = reinterpret_cast<uint4*>(table) + (long long)blockIdx.x * ROWS * COLS * 2;
+  if (threadIdx.x < 32) {
+    const Lane<P> L = make_lane<P>(s);
+    const bool keep = threadIdx.x < P::T;
+    uint32_t x[K];
+    const uint32_t h = value_words<P>(bases + (long long)blockIdx.x * kValBytes, L.tl, x);
+    team_to_mont<P>(x, x, h, s, L);
+    int phase = 0;
+#pragma unroll 1
+    for (int k = 0;; ++k) {
+      if (keep) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) chain[k][L.tl * K + j] = x[j];
+      }
+      __threadfence_block();
+      while (phase < kFillPhases && k + 1 == (phase + 1) * ROWS / kFillPhases)
+        bar_arrive(1 + phase++, kTableThreads);
+      if (k + 1 == ROWS) return;
+#pragma unroll 1
+      for (int q = 0; q < W; ++q) team_prod<P>(x, x, x, L);
+    }
+  }
+  const Lane<P1> L1 = make_lane<P1>(s);
+  const int tid = (int)threadIdx.x - 32;
+#pragma unroll 1
+  for (int ph = 0; ph < kFillPhases; ++ph) {
+    const int r0 = ph * ROWS / kFillPhases, rows = (ph + 1) * ROWS / kFillPhases - r0;
+    bar_sync(1 + ph, kTableThreads);
+    for (int k = r0 + tid; k < r0 + rows; k += kFillThreads) {
+      uint4* row = tab + k * COLS * 2;
+      const uint32_t* sk = chain[k];
+      row[0] = make_uint4(s.one[0], s.one[1], s.one[2], s.one[3]);
+      row[1] = make_uint4(s.one[4], s.one[5], s.one[6], s.one[7]);
+      row[2] = make_uint4(sk[0], sk[1], sk[2], sk[3]);
+      row[3] = make_uint4(sk[4], sk[5], sk[6], sk[7]);
+    }
+    bar_sync(kFillBarrier, kFillThreads);
+#pragma unroll 1
+    for (int h = 1; h < COLS; h *= 2) {
+      const int span = (2 * h < COLS ? 2 * h : COLS - 1) - h;  // j in (h, h + span]
+#pragma unroll 1
+      for (int i = tid; i < rows * span; i += kFillThreads) {
+        const int k = r0 + i / span, j = h + 1 + i % span;
+        const uint4* row = tab + k * COLS * 2;
+        const uint4 a0 = row[2 * h], a1 = row[2 * h + 1];
+        const uint4 b0 = row[2 * (j - h)], b1 = row[2 * (j - h) + 1];
+        uint32_t a[kWords] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const uint32_t b[kWords] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        team_prod<P1>(a, a, b, L1);
+        uint4* at = tab + (k * COLS + j) * 2;
+        at[0] = make_uint4(a[0], a[1], a[2], a[3]);
+        at[1] = make_uint4(a[4], a[5], a[6], a[7]);
+      }
+      bar_sync(kFillBarrier, kFillThreads);
+    }
   }
 }
 
-// One thread per exponent: acc = prod_k T[rows[i]][k][nibble_k(e_i)], where
-// nibble k holds exponent bits [4k, 4k + 4).  The select is an integer
-// index into the table, never a float contraction.
-__global__ void comb_apply_kernel(const uint8_t* __restrict__ exps,
-                                  const int32_t* __restrict__ rows,
-                                  const uint32_t* __restrict__ table,
-                                  uint8_t* __restrict__ out, long long n,
-                                  MontSpec s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4* t = reinterpret_cast<const uint4*>(
-      table + (long long)rows[i] * (kCombRows * kCombCols * kWords));
-  const uint8_t* e = exps + i * 32;
+// K9, accumulation: one lane per exponent, acc = prod_k T[rows[i]][k][d_k]
+// over the exponent's W-bit digits d_k (a zero digit multiplies by
+// T[.][k][0] = R mod p), the next entry's load issued before the current
+// product.  A block's exponents are consecutive, so they share their
+// base's table (the engine sends each base's exponents together); the
+// block stages its exponent rows and its results through shared memory.
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
+comb_apply_kernel(const uint8_t* __restrict__ exps, const int32_t* __restrict__ rows,
+                  const uint32_t* __restrict__ table, uint8_t* __restrict__ out,
+                  long long n, const __grid_constant__ MontSpec s) {
+  constexpr int W = P::W, ROWS = comb_rows(W), COLS = 1 << W;
+  __shared__ __align__(16) uint8_t ex[P::THREADS * kExpBytes];
+  __shared__ __align__(16) uint8_t res[round16(P::THREADS * kValBytes)];
+  const long long first = (long long)blockIdx.x * P::THREADS;
+  const int cnt = (int)(n - first < P::THREADS ? n - first : P::THREADS);
+  stage_in<P>(ex, exps + first * kExpBytes, cnt * kExpBytes, P::THREADS * kExpBytes);
+  __syncthreads();
+  using P1 = Plan<8, 32, 1, W, W, P::THREADS, P::MIN_BLOCKS>;
+  const Lane<P1> L = make_lane<P1>(s);
+  // a lane past the end runs the block's first row with a zero exponent
+  const int row = rows[first + (threadIdx.x < cnt ? threadIdx.x : 0)];
+  const uint4* t = reinterpret_cast<const uint4*>(table) + (long long)row * ROWS * COLS * 2;
+  const uint8_t* er = ex + threadIdx.x * kExpBytes;
   uint32_t acc[kWords], m[kWords];
-  copy8(acc, s.one);
+  uint4 q0 = __ldg(t + 2 * digit_at<P, W>(er, 0));
+  uint4 q1 = __ldg(t + 2 * digit_at<P, W>(er, 0) + 1);
+  acc[0] = q0.x; acc[1] = q0.y; acc[2] = q0.z; acc[3] = q0.w;
+  acc[4] = q1.x; acc[5] = q1.y; acc[6] = q1.z; acc[7] = q1.w;
+  const uint4* at = t + 2 * (COLS + digit_at<P, W>(er, 1));
+  q0 = __ldg(at);
+  q1 = __ldg(at + 1);
 #pragma unroll 1
-  for (int byte = 0; byte < 32; ++byte) {
-    const uint32_t v = e[byte];
-    const int k_lo = 2 * (31 - byte);  // byte 31 is the least significant
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int k = k_lo + half;
-      const uint32_t nib = half ? (v >> 4) : (v & 15u);
-      const long long at = 2 * ((long long)k * kCombCols + nib);
-      const uint4 q0 = __ldg(t + at);
-      const uint4 q1 = __ldg(t + at + 1);
-      m[0] = q0.x; m[1] = q0.y; m[2] = q0.z; m[3] = q0.w;
-      m[4] = q1.x; m[5] = q1.y; m[6] = q1.z; m[7] = q1.w;
-      mont_prod(acc, acc, m, s);
+  for (int k = 1; k < ROWS; ++k) {
+    m[0] = q0.x; m[1] = q0.y; m[2] = q0.z; m[3] = q0.w;
+    m[4] = q1.x; m[5] = q1.y; m[6] = q1.z; m[7] = q1.w;
+    if (k + 1 < ROWS) {
+      at = t + 2 * ((k + 1) * COLS + digit_at<P, W>(er, k + 1));
+      q0 = __ldg(at);
+      q1 = __ldg(at + 1);
     }
+    team_prod<P1>(acc, acc, m, L);
   }
-  from_mont(acc, acc, s);
-  store33(out + i * 33, acc);
+  unit_slice<P1>(L.tl, m);
+  team_prod<P1>(acc, acc, m, L);
+  store_value(res + threadIdx.x * kValBytes, acc);
+  __syncthreads();
+  stage_out<P>(out + first * kValBytes, res, cnt * kValBytes);
 }
 
 inline bool spec_from(const void* words, MontSpec* s) {
@@ -352,6 +428,50 @@ inline bool grid_ok(long long n) {
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <class P>
+int launch_dual(const void* u1, const void* e1, const void* u2, const void* e2,
+                void* out, long long n, const void* spec, void* stream) {
+  MontSpec s;
+  if (n < 1 || (n + P::TEAMS - 1) / P::TEAMS > 0x7FFFFFFFll || !spec_from(spec, &s))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = dual_smem<P>();
+  static_assert(2 * round16(P::TEAMS * kValBytes) <= 2 * (1 << P::WD) * P::K * P::THREADS * 4,
+                "staging");
+  static_assert(smem_fits<P>(smem), "MIN_BLOCKS blocks' shared memory fits an SM");
+  cudaError_t rc = cudaFuncSetAttribute(
+      dual_pow_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  dual_pow_kernel<P><<<(unsigned)((n + P::TEAMS - 1) / P::TEAMS), P::THREADS, smem,
+                       (cudaStream_t)stream>>>(
+      (const uint8_t*)u1, (const uint8_t*)e1, (const uint8_t*)u2,
+      (const uint8_t*)e2, (uint8_t*)out, n, s);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_comb_table(const void* bases, void* table, long long n_rows,
+                      const void* spec, void* stream) {
+  MontSpec s;
+  if (n_rows < 1 || n_rows > 0x7FFFFFFFll || !spec_from(spec, &s))
+    return (int)cudaErrorInvalidValue;
+  comb_table_kernel<P><<<(unsigned)n_rows, kTableThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bases, (uint32_t*)table, s);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_comb_apply(const void* exps, const void* rows, const void* table,
+                      void* out, long long n, const void* spec, void* stream) {
+  MontSpec s;
+  if (n < 1 || (n + P::THREADS - 1) / P::THREADS > 0x7FFFFFFFll || !spec_from(spec, &s))
+    return (int)cudaErrorInvalidValue;
+  comb_apply_kernel<P><<<(unsigned)((n + P::THREADS - 1) / P::THREADS), P::THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const uint8_t*)exps, (const int32_t*)rows, (const uint32_t*)table,
+      (uint8_t*)out, n, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -381,27 +501,29 @@ extern "C" int pow_fused(const void* base, const void* exp, void* out,
   return (int)cudaGetLastError();
 }
 
-// out[i] = u1[i]^e1[i] * u2[i]^e2[i] mod p.
+// out[i] = u1[i]^e1[i] * u2[i]^e2[i] mod p.  A call whose rows
+// DualSmallPlan's resident blocks hold at once runs at the latency of a
+// row: it takes that plan's 4-bit window (fewer products, larger tables);
+// a longer call runs at the issue rate, where DualPlan's 3-bit window keeps
+// twice the rows resident.
 extern "C" int dual_pow_fused(const void* u1, const void* e1, const void* u2,
                               const void* e2, void* out, long long n,
                               const void* spec, void* stream) {
-  MontSpec s;
-  if (!grid_ok(n) || !spec_from(spec, &s)) return (int)cudaErrorInvalidValue;
-  dual_pow_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)u1, (const uint8_t*)e1, (const uint8_t*)u2,
-      (const uint8_t*)e2, (uint8_t*)out, n, s);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (n <= (long long)sms * DualSmallPlan::MIN_BLOCKS * DualSmallPlan::TEAMS)
+    return launch_dual<DualSmallPlan>(u1, e1, u2, e2, out, n, spec, stream);
+  return launch_dual<DualPlan>(u1, e1, u2, e2, out, n, spec, stream);
 }
 
-// table (n_rows, 64, 16, 8) uint32: T[r][k][j] = bases[r]^(j * 16^k) * R mod p.
+// table (n_rows, ceil(256 / W), 2^W, 8) uint32 for CombPlan's width W:
+// T[r][k][j] = bases[r]^(j * 2^(W k)) * R mod p.
 extern "C" int comb_table(const void* bases, void* table, long long n_rows,
                           const void* spec, void* stream) {
-  MontSpec s;
-  if (n_rows < 1 || n_rows > 0x7FFFFFFFll || !spec_from(spec, &s))
-    return (int)cudaErrorInvalidValue;
-  comb_table_kernel<<<(unsigned)n_rows, kCombRows, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bases, (uint32_t*)table, s);
-  return (int)cudaGetLastError();
+  return launch_comb_table<CombPlan>(bases, table, n_rows, spec, stream);
 }
 
 // out (n, 33): out[i] = bases[rows[i]]^exps[i] mod p from comb_table's
@@ -409,10 +531,5 @@ extern "C" int comb_table(const void* bases, void* table, long long n_rows,
 extern "C" int comb_apply(const void* exps, const void* rows, const void* table,
                           void* out, long long n, const void* spec,
                           void* stream) {
-  MontSpec s;
-  if (!grid_ok(n) || !spec_from(spec, &s)) return (int)cudaErrorInvalidValue;
-  comb_apply_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)exps, (const int32_t*)rows, (const uint32_t*)table,
-      (uint8_t*)out, n, s);
-  return (int)cudaGetLastError();
+  return launch_comb_apply<CombPlan>(exps, rows, table, out, n, spec, stream);
 }

@@ -13,9 +13,16 @@ kernel, the instructions by opcode and the integer ALU ones
   from memory, so nothing folds (``csrc/sha256.cu``);
 - ``probe_node``: one ``sha256_node`` (the two compressions of a
   65-byte Merkle node message, whose padding words are constants);
-- ``probe_mont``: one ``mont_prod`` (``csrc/modexp.cu``, 8 x 32-bit
-  CIOS with its conditional subtract) on operands and a modulus read
-  from memory;
+- ``probe_team_prod_8``: one team product of K8's ``DualPlan``
+  (``csrc/mont_team.cuh``, 8 x 32-bit CIOS with its conditional
+  subtract; every kernel of ``csrc/modexp.cu`` runs it, with one lane
+  or a team) on operands and a modulus read from memory, counted as the
+  wide probes below are.  The script prints ``mont_team_prod`` (its ALU
+  instructions per lane and per team) and ``mont_ops``:
+  ``MONT_FIRST_OPS`` (the first design's one-thread product, 429),
+  ``MONT_TEAM_OPS`` and ``MONT_OPS``, the lesser of the two, which the
+  256-bit bounds in ``chip_smoke.py`` use; it exits 1 when the team
+  product now counts fewer instructions than ``MONT_TEAM_OPS``;
 - ``probe_team_prod_NW`` for NW = 12, 25 and 66
   (``csrc/modexp_wide.cu``): one ``team_prod`` of the family's plan on
   one lane's words of the operands and of p read from memory, its loop
@@ -33,9 +40,10 @@ kernel, the instructions by opcode and the integer ALU ones
   records, so that the bounds are brought down with it.
 
 It also prints ``ptxas -v``'s registers, shared memory and spill bytes
-for every kernel of ``csrc/gf65536.cu`` and ``csrc/modexp_wide.cu``,
-and for the latter a ``ptxas_wide`` summary: registers, stack and
-spill bytes per kernel and family.
+for every kernel of ``csrc/gf65536.cu``, ``csrc/modexp.cu`` and
+``csrc/modexp_wide.cu``, and for the last two a ``ptxas_modexp`` and a
+``ptxas_wide`` summary: registers, stack and spill bytes per kernel (and
+family).
 
 Run from the repository root on a machine with ``nvcc`` and
 ``cuobjdump`` (no card needed):
@@ -84,18 +92,28 @@ extern "C" __global__ void probe_node(const uint32_t* __restrict__ in,
 _PROBES["modexp"] = r"""
 #include "modexp.cu"
 
-extern "C" __global__ void probe_mont(const uint32_t* __restrict__ in,
-                                      uint32_t* __restrict__ out) {
-  MontSpec s;
+// One team product of K8's DualPlan (one lane; K9's table chain runs the
+// product as a team of CombPlan::T lanes), as the kernels run it.
+extern "C" __global__ void probe_team_prod_8(const uint32_t* __restrict__ in,
+                                             uint32_t* __restrict__ out) {
+  using P = DualPlan;
+  Lane<P> L;
+  L.tl = (int)(threadIdx.x % P::T);
+  L.lane = threadIdx.x & 31u;
+  L.top = L.tl == P::T - 1;
+  L.pinv = in[0];
+  uint32_t a[P::K], b[P::K];
+  __syncthreads(); /* converged, as in the kernels */
+  const uint32_t* at = in + 1 + 3 * P::K * threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s.p[i] = in[16 + i];
-  s.pinv = in[24];
-  uint32_t a[8], b[8];
+  for (int k = 0; k < P::K; ++k) {
+    L.p[k] = at[k];
+    a[k] = at[P::K + k];
+    b[k] = at[2 * P::K + k];
+  }
+  team_prod<P>(a, a, b, L);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) { a[i] = in[i]; b[i] = in[8 + i]; }
-  mont_prod(a, a, b, s);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = a[i];
+  for (int k = 0; k < P::K; ++k) out[P::K * threadIdx.x + k] = a[k];
 }
 """
 
@@ -145,10 +163,18 @@ _WARP = {"SHFL", "VOTE", "REDUX"}
 WIDE_MONT_OPS = {12: 1013, 25: 4068, 66: 26987}
 # ... and of the shipped plans' team product (``wide_team_prod``'s
 # ``alu_per_team``: a lane's count times the team's T lanes).
-WIDE_TEAM_OPS = {12: 950, 25: 11680, 66: 66208}
+WIDE_TEAM_OPS = {12: 950, 25: 11680, 66: 65536}
 # The bound of a wide product (chip_smoke.py's K12 bounds): the fewest
 # instructions any of the two products has been seen to need.
 WIDE_BOUND_OPS = {nw: min(WIDE_MONT_OPS[nw], WIDE_TEAM_OPS[nw]) for nw in WIDE_MONT_OPS}
+# 32-bit instructions of one 256-bit Montgomery product: the first design's
+# one-thread CIOS product (counted in its SASS before csrc/modexp.cu moved
+# onto the team product) and the team product of K8's plan
+# (``probe_team_prod_8``, per team) ...
+MONT_FIRST_OPS = 429
+MONT_TEAM_OPS = 431
+# ... and the count chip_smoke.py's 256-bit bounds use: the lesser of the two.
+MONT_OPS = min(MONT_FIRST_OPS, MONT_TEAM_OPS)
 # address, opcode and operands of one SASS line
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)")
 
@@ -214,7 +240,7 @@ def main() -> int:
             [_cuobjdump(), "-sass", str(cubin)], check=True, capture_output=True, text=True
         ).stdout
     (work / "probe.sass").write_text(sass)
-    for name in ("gf65536", "modexp_wide"):
+    for name in ("gf65536", "modexp", "modexp_wide"):
         log = subprocess.run(
             [nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
              str(work / f"{name}.cubin"), str(_CSRC / f"{name}.cu")],
@@ -226,6 +252,8 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
         if name == "modexp_wide":
             print("ptxas_wide " + json.dumps(ptxas_summary(text)))
+        if name == "modexp":
+            print("ptxas_modexp " + json.dumps(ptxas_summary(text, whole_plan=True)))
     result = {}
     for fn, hist in count(sass).items():
         alu = sum(n for op, n in hist.items() if op not in _NOT_ALU)
@@ -253,6 +281,16 @@ def main() -> int:
     if stale:
         print(f"sass_ops: WIDE_TEAM_OPS is above the measured count at {stale} words")
         return 1
+    t = modexp_plans()["DualPlan"]["team"]
+    total, body = loop_alu(sass, "probe_team_prod_8")
+    iters = -(-8 // -(-8 // t)) // (t if t <= 4 else 1)
+    lane = total + (iters - 1) * body if body else total
+    print("mont_team_prod " + json.dumps({"team": t, "alu_per_lane": lane, "alu_per_team": lane * t}))
+    print("mont_ops " + json.dumps({"MONT_FIRST_OPS": MONT_FIRST_OPS,
+                                    "MONT_TEAM_OPS": MONT_TEAM_OPS, "MONT_OPS": MONT_OPS}))
+    if lane * t < MONT_TEAM_OPS:
+        print("sass_ops: MONT_TEAM_OPS is above the measured count")
+        return 1
     return 0
 
 
@@ -270,22 +308,40 @@ def wide_plans() -> Dict[int, Dict[str, int]]:
     }
 
 
+_MODEXP_PLAN = re.compile(r"using (\w+Plan) = Plan<([\d,\s]+)>;")
+
+
+def modexp_plans() -> Dict[str, Dict[str, int]]:
+    """{"DualPlan": plan, "CombPlan": plan} as csrc/modexp.cu declares
+    them: the template's arguments by name (``_PLAN_FIELDS``)."""
+    src = (_CSRC / "modexp.cu").read_text()
+    return {
+        m.group(1): dict(zip(_PLAN_FIELDS, (int(x) for x in m.group(2).split(","))))
+        for m in _MODEXP_PLAN.finditer(src)
+    }
+
+
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
+_KERNEL = re.compile(r"(dual_pow|comb_table|comb_apply|mont_mul|pow)_kernel")
 
 
-def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
-    """{"<pow|dual>@<NW>": registers, stack and spill bytes} from
-    ``ptxas -v`` output of csrc/modexp_wide.cu's kernels."""
+def ptxas_summary(log: str, whole_plan: bool = False) -> Dict[str, Dict[str, int]]:
+    """{"<kernel>@<NW>": registers, stack and spill bytes} from ``ptxas
+    -v`` output of csrc/modexp_wide.cu's or csrc/modexp.cu's kernels
+    (kernel: pow, dual, comb_table, comb_apply or mont_mul); with
+    ``whole_plan`` the key names every argument of the kernel's plan
+    ("dual@8,32,1,4,4,32,6")."""
     out: Dict[str, Dict[str, int]] = {}
     key = None
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
-            fam = re.search(r"PlanILi(\d+)E", m.group(1))
-            kind = "dual" if "dual" in m.group(1) else "pow"
-            key = f"{kind}@{fam.group(1)}" if fam else None
+            plan = re.search(r"PlanI((?:Li\d+E)+)E", m.group(1))
+            args = re.findall(r"Li(\d+)E", plan.group(1)) if plan else ["8"]
+            kind = _KERNEL.search(m.group(1)).group(1).replace("dual_pow", "dual")
+            key = f"{kind}@{','.join(args) if whole_plan else args[0]}"
             continue
         if key is None:
             continue

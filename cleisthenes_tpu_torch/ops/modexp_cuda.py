@@ -8,9 +8,9 @@ with its plain PyTorch version beside it:
 - ``pow_fused``          K7,  ``_pow_fused`` (:551)
 - ``dual_pow_fused``     K8,  ``_dual_pow_fused`` (:592)
 - ``pow_fused_grouped``  K9,  ``_pow_fused_grouped`` (:639): the
-                         fixed-base comb, two launches (a table per
-                         base, then one thread per exponent, which
-                         names its base by a row index)
+                         fixed-base comb of width ``COMB_WIDTH``, two
+                         launches (a table per base, then one thread per
+                         exponent, which names its base by a row index)
 - ``wide_pow_fused``,    K12, ``_wide_kernels(lay)`` (:313) -> its
   ``wide_dual_pow_fused``  ``pow_fused`` (:351) and ``dual_pow_fused``
                          (:378) for groups of 257 to 2112 bits
@@ -68,8 +68,11 @@ KERNEL_R_BITS = 256
 _W = 16
 _L = 17
 _MASK = (1 << _W) - 1
-COMB_ROWS = 64  # nibble positions of a 256-bit exponent
+COMB_ROWS = 64  # nibble positions of a 256-bit exponent (the plain comb)
 COMB_COLS = 16  # nibble values
+# The kernels' comb (csrc/modexp.cu ``CombPlan``): digits of COMB_WIDTH bits,
+# so a base's table holds ceil(256 / COMB_WIDTH) rows of 2^COMB_WIDTH entries
+COMB_WIDTH = 7
 # The port's one table of the wide families (csrc/modexp_wide.cu), value
 # bytes -> 32-bit words: moduli of at most 384, 792 and 2112 bits (the
 # reference's (12, 32), (11, 72) and (11, 192) limb families,
@@ -494,8 +497,9 @@ def pow_fused_grouped(
 ) -> torch.Tensor:
     """K9: (n, 33) bases, (M, 32) exponents, (M,) int32 row indices in
     [0, n) -> (M, 33) with out[i] = bases[rows[i]]^exps[i] mod p: a comb
-    table per base (``comb_table``, 32 KiB per base), then one thread
-    per exponent (``comb_apply``).  The reference's (n, G) rectangle is
+    table per base (``comb_table``, ceil(256 / w) rows of 2^w entries of
+    32 bytes for the width w = ``COMB_WIDTH``: 148 KiB at w = 7), then one
+    thread per exponent (``comb_apply``).  The reference's (n, G) rectangle is
     rows = arange(n).repeat_interleave(G)."""
     n, m = bases.shape[0], exps.shape[0]
     _check_bytes("pow_fused_grouped bases", bases, (-1, 33))
@@ -505,27 +509,38 @@ def pow_fused_grouped(
             f"pow_fused_grouped rows: need a contiguous int32 tensor of shape "
             f"({m},), got {rows.dtype} {tuple(rows.shape)}"
         )
-    if m:
-        lo, hi = torch.stack(torch.aminmax(rows)).tolist()  # one sync
-        if lo < 0 or hi >= n:
-            raise ValueError(f"pow_fused_grouped rows: an index lies outside [0, {n})")
+    outside = ValueError(f"pow_fused_grouped rows: an index lies outside [0, {n})")
+    if m and n == 0:
+        raise outside
     if not _on_cuda(bases, exps, rows):
+        if m and not bool(((rows >= 0) & (rows < n)).all()):
+            raise outside
         return pow_fused_grouped_plain(bases, exps, rows, spec)
     out = torch.empty((m, 33), dtype=torch.uint8, device=exps.device)
     if m == 0:
         return out
     table = torch.empty(
-        (n, COMB_ROWS, COMB_COLS, 8), dtype=torch.int32, device=exps.device
+        (n, -(-KERNEL_R_BITS // COMB_WIDTH), 1 << COMB_WIDTH, 8),
+        dtype=torch.int32, device=exps.device,
     )
     sites = ("pow_grouped",)
     _launch(
         "comb_table", sites, exps, bases.data_ptr(), table.data_ptr(),
         n, spec.words.ctypes.data,
     )
+    # The table build reads no row index, so it goes first and the range
+    # check is queued behind it; the check is read back only after the
+    # accumulation's launch, which reads clamped indices, never a row
+    # outside the table.
+    lo_hi = torch.stack(torch.aminmax(rows))
+    safe = rows.clamp(0, n - 1)
     _launch(
-        "comb_apply", sites, exps, exps.data_ptr(), rows.data_ptr(),
+        "comb_apply", sites, exps, exps.data_ptr(), safe.data_ptr(),
         table.data_ptr(), out.data_ptr(), m, spec.words.ctypes.data,
     )
+    lo, hi = lo_hi.tolist()
+    if lo < 0 or hi >= n:
+        raise outside
     return out
 
 
@@ -574,6 +589,7 @@ def wide_dual_pow_fused(
 __all__ = [
     "COMB_COLS",
     "COMB_ROWS",
+    "COMB_WIDTH",
     "KERNEL_R_BITS",
     "MontSpec",
     "comb_table_plain",
