@@ -8,8 +8,12 @@ Run from the repository root, with no arguments:
 It needs one CUDA card and ``nvcc``; without a card it exits non-zero
 before printing any result.  It prints, in order:
 
-1. the card (``nvidia-smi`` name and power limit) and the seconds the
-   kernels' build from ``cleisthenes_tpu_torch/csrc/*.cu`` took;
+1. the card (``nvidia-smi`` name and power limit), the seconds the
+   kernels' build from ``cleisthenes_tpu_torch/csrc/*.cu`` took, the
+   binary and s8 tensor-core rates that ``csrc/mma_probe.py`` measures
+   (bit products a second) and K11's b1 yardstick from them
+   (``b1_yardstick``: the b1 reading scaled by NVIDIA's published s8 peak
+   over the s8 reading);
 2. the kernel phases: every RBC entry point — RS encode, shared and
    per-instance RS decode, ``sha256_rows``, the Merkle forest, the
    branch verify and the fused decode-recheck — on the card at the
@@ -28,10 +32,15 @@ before printing any result.  It prints, in order:
    and against Python's ``pow`` on a sample, in the default group and,
    parity only, in a second 256-bit group; the
    GF(2^16) codec (K11) at the N=512/f=170 epoch's shapes (B=512,
-   k=172, n=512, 64 symbols: encode, shared and per-instance decode,
-   with the 512-leaf forest and the D=9 branch verify) and, parity
-   only, at N=300/f=99, encode held also against the host
-   ``Cpu16ErasureCoder``; and the wide pow and dual pow (K12) in the
+   k=172, n=512, 64 symbols: first a decode by the identity, which pins
+   the bit order of the tensor-core fragments, then encode, shared and
+   per-instance decode, with the 512-leaf forest and the D=9 branch
+   verify) and, parity only, at N=300/f=99, encode held also against the
+   host ``Cpu16ErasureCoder``, K11 and the forest held to one launch a
+   call; untimed, the paths of both that no epoch takes (``edge_phase``:
+   K11 past one lifted span, at an odd symbol count and off a 4-byte
+   boundary; forests of rows staged by byte loads and of rows past the
+   64 KB staging budget); and the wide pow and dual pow (K12) in the
    384-bit (batch 2048), 768-bit (512) and 2048-bit (128) groups, at the
    GROUP384 epoch's own calls (a pow of 98,304 exponents over 257
    bases, a dual pow of 22,016 rows, half of them Lagrange rows) and,
@@ -44,14 +53,17 @@ before printing any result.  It prints, in order:
    group), the plain version's (median of 3), launches per call and the
    bound (for a pow or dual pow, from the fewest Montgomery products a
    fixed-window method needs for the run's exponents; for the comb, the
-   fewest a comb of any width 2..8 per base needs, ``least_comb``);
+   fewest a comb of any width 2..8 per base needs, ``least_comb``; for
+   K11 also the tensor-core bound, its bit products at the b1 yardstick
+   against its bytes);
 3. three paths through ``LockstepCluster`` with its defaults (the
    'cuda' backend), each committing 3 epochs of random 64-byte
    transactions, every one exactly once, with the launch counts set to
    zero just before and read just after:
    - N=128 (``n=128, batch_size=10000, key_seed=77``): the RBC entry
      points, the comb (share issue) and the dual pow (CP verify with
-     the fused Lagrange combine) must launch.  Each epoch's line splits
+     the fused Lagrange combine) must launch, and on every path none of
+     ``OFF_PATH``.  Each epoch's line splits
      ``bba_s`` by the modexp engine's own ``stats``;
    - N=512 (``batch_size=4096``): the GF(2^16) codec's encode and
      decode, the forest, the branch verify, the comb and the dual pow
@@ -59,6 +71,10 @@ before printing any result.  It prints, in order:
    - GROUP384 (N=128, every exponentiation in the 384-bit group): the
      engine must be the card's, the wide pow and dual pow must launch
      and the 256-bit comb, dual pow and pow must not;
+   and after every timed path, one N=512 epoch of a fresh cluster under
+   ``torch.profiler``, which prints the device time per kernel and per
+   memcpy direction and the share of the epoch the device was busy (or
+   that the profiler gave no device events);
 4. the decrypt-combine phase, after the N=128 path: one more epoch of
    fresh transactions, whose 128 decryption-share sets (43 shares each)
    are kept from its fused verify/combine call and combined again
@@ -66,7 +82,10 @@ before printing any result.  It prints, in order:
    decrypt branch, one generic-pow dispatch — must give the values the
    epoch's fused dispatch left in the combine memo;
 5. the seconds the run took after the build, the ``{"kernels": [...]}``
-   JSON line (K1-K12), the card line again, and last
+   JSON line (K1-K12; ``OFF_PATH``'s kernels, mont_mul and sha256_rows,
+   which no path launches, carry the paths' 0 with their kernel-phase
+   launches and the reason beside it; K11's and K5's entries carry both
+   their bounds), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere is zero: all of this is exact integer math.  Any
@@ -83,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -92,6 +112,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # clock (half its 128 FP32 lanes), so 132 SMs x 64 x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# dense INT8 tensor-core peak of the same data sheet, 1,979 TOPS, at two
+# operations a multiply-accumulate (K11's b1 yardstick scales by it)
+S8_PUBLISHED_MACS_PER_S = 1979e12 / 2
 # 32-bit instructions sm_90a issues for SHA-256, counted in the SASS by
 # ``python3 -m cleisthenes_tpu_torch.csrc.sass_ops``: 1,383 for one
 # compression of words that do not fold (14 per round: 6 SHF, 4 LOP3 for
@@ -157,6 +180,32 @@ def bound(nbytes: int, ops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def gf2_bit_products(m: int, k: int, cols: int) -> int:
+    """Bit products of K11's function as a lifted GF(2) product: 16 m
+    lifted rows x 16 k lifted columns x cols symbol columns (the zeros
+    the kernel pads k with are not work the function needs)."""
+    return 16 * m * 16 * k * cols
+
+
+def b1_yardstick(b1_rate: float, s8_rate: float) -> float:
+    """The binary tensor cores' peak, in bit products a second, from the
+    ``mma.sync`` readings of ``mma_probe.mma_rates``: NVIDIA publishes no
+    b1 rate, and the probe reads s8 below NVIDIA's published dense s8
+    peak (``S8_PUBLISHED_MACS_PER_S``: on Hopper only wgmma reaches it),
+    so the b1 reading scaled by that gap, or the reading itself if the
+    gap ever closes."""
+    return max(b1_rate, b1_rate * S8_PUBLISHED_MACS_PER_S / s8_rate)
+
+
+def tc_bound(nbytes: int, bit_products: int, b1_rate: float):
+    """(bound_ms, bound_by) of K11 on the binary tensor cores: bytes at
+    the HBM rate against bit products at ``b1_rate`` (bit products a
+    second, ``b1_yardstick``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = bit_products / b1_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Median ms per call: CUDA events around each call after a warm-up."""
     fn()
@@ -198,11 +247,14 @@ def payload_len(n: int, batch: int) -> int:
     return 32 + 4 + len(serialize_txs([bytes(TX_BYTES)] * per_node)) + 32
 
 
-def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> dict:
+def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_rate=None) -> dict:
     """Every entry point at one roster's epoch shapes, on ``dev``, held
     against its plain version; returns {entry point: record}.  Past 256
     validators the codec is GF(2^16) (K11 ``rs16_*`` on uint16 symbols,
-    no fused decode-recheck); below, GF(2^8) (K1-K3)."""
+    no fused decode-recheck), first decoding by the identity (the bit
+    order of its tensor-core fragments), with a second bound on the
+    binary tensor cores at ``b1_rate`` (``tc_bound_ms``); below, GF(2^8)
+    (K1-K3).  K11 and the forest must make one launch a call."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
@@ -221,7 +273,9 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
     wide = n > 256
     field = gf65536 if wide else gf256
     # symbol bytes, int32 ops per multiply-accumulate (csrc/gf256.cu: table
-    # product and XOR; csrc/gf65536.cu: log sum, two minimums, XOR)
+    # product and XOR; for GF(2^16) the int-op yardstick of the log/exp
+    # design K11 had before its tensor-core one, kept for comparison: log
+    # sum, two minimums, XOR)
     sym, mac_ops = (2, 4) if wide else (1, 2)
     S = L // sym
     prefix = "rs16_" if wide else "rs_"
@@ -237,6 +291,8 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
     data = put(data_np.view(np.uint16) if wide else data_np)
     a_np = field.systematic_rs_matrix(n, k)
     enc = put(a_np)
+    if wide:
+        rs16.mark_systematic(enc, a_np)
     full_s = encode(enc, data)  # (b, n, S) symbols
     full = full_s.view(torch.uint8) if wide else full_s  # (b, n, L) bytes
     shared_idx = sorted(rng.choice(n, k, replace=False).tolist())
@@ -273,6 +329,18 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
     leaves_v, br_v, idx_v = put(leaves_np), put(np.ascontiguousarray(br)), put(idx_np)
 
     L1 = L + 1
+    out = {}
+    if wide:
+        # the bit order of K11's fragments: a decode by the identity
+        before = sum(COUNTS.kernels.values())
+        got = decode(put(np.eye(k, dtype=np.uint16)), data)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rec = {"equal": torch.equal(got.to(torch.int32), data.to(torch.int32)),
+               "max_abs_err": 0.0, "launches_per_call": sum(COUNTS.kernels.values()) - before}
+        print(f"kernel rs16_identity n={n} f={f} B={b} k={k} L={L}: equal={rec['equal']} "
+              f"launches_per_call={rec['launches_per_call']}", flush=True)
+        out["rs16_identity"] = rec
     cases = {
         prefix + "encode": (
             lambda: encode(enc, data),
@@ -315,7 +383,12 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
             2 * b * k * k * L + 2 * b * (n - k) * k * L
             + b * (n * blocks(L1) * SHA_OPS_PER_BLOCK + (p - 1) * SHA_OPS_PER_NODE),
         )
-    out = {}
+    # bit products of K11's lifted GF(2) product
+    tc_bits = {
+        prefix + "encode": gf2_bit_products(n - k, k, b * S),
+        prefix + "decode": gf2_bit_products(k, k, b * S),
+        prefix + "decode_per_instance": gf2_bit_products(k, k, b * S),
+    } if wide else {}
     for name, (kern, plain, nbytes, ops) in cases.items():
         before = sum(COUNTS.kernels.values())
         got = kern()
@@ -335,6 +408,8 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
         else:
             err = float("inf")
         rec = {"equal": equal, "max_abs_err": float(err), "launches_per_call": per_call}
+        if dev.type == "cuda" and (name in tc_bits or name == "merkle_forest"):
+            rec["equal"] &= per_call == 1  # one launch a call
         # independent checks beyond the plain version
         if name.endswith(("_decode", "_decode_per_instance")):
             rec["equal"] &= torch.equal(got_t[0], data.to(torch.int32))
@@ -360,6 +435,10 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
             rec["kernel_ms"] = time_ms(torch, kern, 20)
             rec["plain_ms"] = time_ms(torch, plain, 3)
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+            if name in tc_bits:
+                rec["int_bound_ms"] = rec["bound_ms"]
+                rec["tc_bound_ms"], rec["tc_bound_by"] = tc_bound(nbytes, tc_bits[name], b1_rate)
+                rec["bit_products"] = tc_bits[name]
         line = (
             f"kernel {name} n={n} f={f} B={b} k={k} L={L}: "
             f"equal={rec['equal']} launches_per_call={per_call}"
@@ -369,8 +448,92 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng) -> di
                 f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']}"
                 f" bound_ms={rec['bound_ms']} ({rec['bound_by']})"
             )
+            if name in tc_bits:
+                line += (
+                    f" tc_bound_ms={rec['tc_bound_ms']} ({rec['tc_bound_by']}, "
+                    f"{rec['bit_products']} bit products at {b1_rate} a second)"
+                )
         print(line, flush=True)
         out[name] = rec
+    return out
+
+
+def edge_phase(torch, dev, rng) -> dict:
+    """Untimed parity on the paths of K11 and K5 that no epoch's shapes
+    take: K11 with k past one lifted span of 176 symbols (N=640/f=213,
+    k=214: two spans, lifted again for every tile), with an odd symbol
+    count (no paired loads or stores) and with x one symbol off a 4-byte
+    boundary (no paired loads at an even count); the forest with rows
+    staged by byte loads (a length, or a start, off 16 bytes) and with
+    rows past the 64 KB staging budget, hashed from global memory.
+    Encode, shared and per-instance decode must equal their plain
+    versions and give back the data; each forest its plain version and
+    ``hashlib_root``; each call one launch.  Returns {case: record}."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import gf65536 as gf
+    from cleisthenes_tpu_torch.ops import rs16_cuda as rs16
+    from cleisthenes_tpu_torch.ops import sha256_cuda as sh
+
+    def put(a, offset=False):
+        """``a`` on ``dev``, one element past an aligned start if ``offset``."""
+        a = np.ascontiguousarray(a)
+        if not offset:
+            return torch.from_numpy(a).to(dev)
+        buf = torch.from_numpy(np.concatenate([np.zeros(1, a.dtype), a.ravel()])).to(dev)
+        return buf[1:].view(a.shape)
+
+    out = {}
+
+    def held(name, kern, plain, check):
+        before = sum(COUNTS.kernels.values())
+        got = kern()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        per_call = sum(COUNTS.kernels.values()) - before
+        want = plain()
+        equal = (torch.equal(got.to(torch.int32), want.to(torch.int32))
+                 and (per_call == 1 or dev.type == "cpu") and check(got))
+        out[name] = {"equal": equal, "launches_per_call": per_call}
+        print(f"edge {name} {tuple(got.shape)}: equal={equal} launches_per_call={per_call}",
+              flush=True)
+        return got
+
+    for tag, n, k, b, S, off in (("two_spans", 640, 214, 3, 40, False),
+                                 ("two_spans_odd_S", 640, 214, 2, 37, False),
+                                 ("odd_S", 300, 102, 3, 33, False),
+                                 ("x_offset", 512, 172, 2, 64, True)):
+        a = gf.systematic_rs_matrix(n, k)
+        enc = put(a)
+        rs16.mark_systematic(enc, a)
+        x_np = rng.integers(0, gf.ORDER, (b, k, S)).astype(np.uint16)
+        x = put(x_np, off)
+        x32 = torch.from_numpy(x_np.astype(np.int32)).to(dev)
+        full = held(f"rs16_encode@{tag}", lambda: rs16.rs16_encode(enc, x),
+                    lambda: rs16.gf65536_apply_plain(enc, x),
+                    lambda got: torch.equal(got.to(torch.int32)[:, :k], x32))
+        full_np = full.cpu().numpy()
+        idx = sorted(rng.choice(n, k, replace=False).tolist())
+        dec, shards = put(gf.gf_mat_inv(a[idx])), put(full_np[:, idx], off)
+        held(f"rs16_decode@{tag}", lambda: rs16.rs16_decode(dec, shards),
+             lambda: rs16.gf65536_apply_plain(dec, shards),
+             lambda got: torch.equal(got.to(torch.int32), x32))
+        pats = [sorted(rng.choice(n, k, replace=False).tolist()) for _ in range(b)]
+        decs = put(np.stack([gf.gf_mat_inv(a[q]) for q in pats]))
+        shards_pi = put(np.stack([full_np[i, q] for i, q in enumerate(pats)]), off)
+        held(f"rs16_decode_per_instance@{tag}", lambda: rs16.rs16_decode(decs, shards_pi),
+             lambda: rs16.gf65536_apply_plain(decs, shards_pi),
+             lambda got: torch.equal(got.to(torch.int32), x32))
+    for tag, b, n, L, off in (("byte_loads", 3, 7, 1001, False),
+                              ("start_offset", 2, 9, 1024, True),
+                              ("global_rows", 2, 3, 65601, False)):
+        shards_np = rng.integers(0, 256, (b, n, L), dtype=np.uint8)
+        shards = put(shards_np, off)
+        held(f"merkle_forest@{tag}", lambda: sh.build_forest(shards),
+             lambda: sh.build_forest_plain(shards),
+             lambda got: all(got[i, -1].cpu().numpy().tobytes() == hashlib_root(shards_np[i])
+                             for i in range(b)))
     return out
 
 
@@ -874,7 +1037,7 @@ def main_path(torch, n: int, batch: int, epochs: int, waves: str, sites,
     for site in sites:
         if on_card and launches["sites"].get(site, 0) <= 0:
             raise AssertionError(f"main path never launched {site}: {launches}")
-    for site in absent:
+    for site in (*absent, *OFF_PATH):
         if launches["sites"].get(site, 0):
             raise AssertionError(f"main path launched {site}: {launches}")
     print(
@@ -959,6 +1122,94 @@ def decrypt_combine_phase(torch, cluster, dev) -> dict:
     return launches
 
 
+def _merged_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for st, en in sorted(intervals):
+        if cur_e is None or st > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def profile_split(events, window) -> dict:
+    """From the device's profiler events (name, start_us, end_us): device
+    microseconds per kernel name and per memcpy direction, and the share
+    of ``window`` (start_us, end_us) in which the device was busy."""
+    kernels, copies, spans = {}, {}, []
+    for name, st, en in events:
+        if en <= window[0] or st >= window[1]:
+            continue
+        spans.append((max(st, window[0]), min(en, window[1])))
+        if name.startswith("Memcpy"):
+            key = next((d for d in ("HtoD", "DtoH", "DtoD") if d in name), name)
+            copies[key] = copies.get(key, 0.0) + en - st
+        else:
+            kernels[name] = kernels.get(name, 0.0) + en - st
+    busy = _merged_us(spans)
+    return {"kernels_us": kernels, "copies_us": copies, "busy_us": busy,
+            "window_us": window[1] - window[0],
+            "busy_share": busy / (window[1] - window[0]) if window[1] > window[0] else 0.0}
+
+
+def profile_phase(torch, n: int, batch: int, **overrides) -> dict:
+    """One epoch of a fresh ``LockstepCluster(n, batch)`` (defaults unless
+    ``overrides``) under ``torch.profiler``: prints the device time per
+    kernel and per memcpy direction and the share of the epoch the device
+    was busy.  Every transaction must commit once.  If the profiler gives
+    no device events it says so and returns an empty split."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from cleisthenes_tpu_torch.protocol.spmd import LockstepCluster
+
+    cluster = LockstepCluster(n=n, batch_size=batch, key_seed=KEY_SEED, **overrides)
+    txs = [row.tobytes() for row in
+           np.random.default_rng(15).integers(0, 256, (batch, TX_BYTES), dtype=np.uint8)]
+    before = len(cluster.committed_batches)
+    for tx in txs:
+        cluster.submit(tx)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_epoch"):
+            s = cluster.run_epoch()
+        if torch.device(cluster.config.device).type == "cuda":
+            torch.cuda.synchronize()
+    committed = [tx for b_ in cluster.committed_batches[before:] for tx in b_.tx_list()]
+    if sorted(committed) != sorted(txs) or cluster.pending_tx_count():
+        raise AssertionError(f"profiled epoch committed {len(committed)} of {len(txs)} txs")
+    evs = prof.events()
+
+    def on_device(e) -> bool:
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    # the annotation's host range is the window; its device-side twin,
+    # which spans the epoch on the card's timeline, is not device work
+    window = next(((e.time_range.start, e.time_range.end) for e in evs
+                   if e.name == "chip_smoke_epoch" and not on_device(e)), None)
+    dev_evs = [(e.name, e.time_range.start, e.time_range.end) for e in evs
+               if on_device(e) and e.name != "chip_smoke_epoch"]
+    if window is None or not dev_evs:
+        print(f"profile: no device events from the profiler (events={len(evs)}); "
+              f"epoch_s={s['epoch_s']}", flush=True)
+        return {}
+    split = profile_split(dev_evs, window)
+    for name, us in sorted(split["kernels_us"].items(), key=lambda kv: -kv[1]):
+        print(f"profile kernel_us={us} {name}", flush=True)
+    for name, us in sorted(split["copies_us"].items()):
+        print(f"profile memcpy {name} us={us}", flush=True)
+    print(
+        f"profile: epoch_s={s['epoch_s']} window_us={split['window_us']} "
+        f"device_busy_us={split['busy_us']} device_busy_share={split['busy_share']} "
+        f"kernels_us={sum(split['kernels_us'].values())} "
+        f"memcpy_us={sum(split['copies_us'].values())} txs={len(committed)}",
+        flush=True,
+    )
+    return split
+
+
 def native_modpow_path() -> str:
     """Path of the host's native modexp library, which BBA runs on in
     this slice; raises if it did not build or load, since the main
@@ -976,10 +1227,9 @@ def native_modpow_path() -> str:
 
 KERNELS = (
     # (entry point, source, TPU kernel replaced); the launch counts of
-    # pow come from the decrypt-combine phase, of mont_mul (whose only
-    # callers are the tests) from its untimed call in the kernel phase,
-    # of gf65536_apply from the N=512 path, of the wide kernels from the
-    # GROUP384 path, of the rest from the N=128 path
+    # pow come from the decrypt-combine phase, of gf65536_apply from the
+    # N=512 path, of the wide kernels from the GROUP384 path, of the rest
+    # (OFF_PATH's too: 0) from the N=128 path
     ("rs_encode", "cleisthenes_tpu_torch/csrc/gf256.cu", "cleisthenes_tpu/ops/rs_xla.py:59"),
     ("rs_decode", "cleisthenes_tpu_torch/csrc/gf256.cu", "cleisthenes_tpu/ops/rs_xla.py:65"),
     ("decode_recheck", "cleisthenes_tpu_torch/ops/rs_cuda.py", "cleisthenes_tpu/ops/rs_xla.py:80"),
@@ -997,6 +1247,18 @@ KERNELS = (
     ("wide_dual_pow_fused", "cleisthenes_tpu_torch/csrc/modexp_wide.cu",
      "cleisthenes_tpu/ops/modmath.py:378"),
 )
+
+# entry points that no epoch path launches, with the reason: every path
+# must leave them at 0 (``main_path``), and their kernel-phase calls,
+# which hold them to their plain versions, must have launched them
+OFF_PATH = {
+    "mont_mul": "its only callers are the tests: every modexp kernel runs its "
+                "Montgomery products inside its own launch",
+    "sha256_rows": "the reference runs sha256_batch only inside build_forest and "
+                   "verify_branches, whose work merkle_forest and merkle_verify "
+                   "now do whole; the protocol's other rows hash on the host "
+                   "(ops/hashrows.py)",
+}
 
 WAVES_128 = (
     "propose (N TPKE encryptions) on the host's native Montgomery kernel; "
@@ -1034,22 +1296,30 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from cleisthenes_tpu_torch.csrc import build
+    from cleisthenes_tpu_torch.csrc import build, mma_probe
 
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    paths = build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(mma_probe.build_probe)  # its nvcc beside the kernels'
+        paths = build.build_all()
+        probe.result()
     for name in paths:
         build.load(name)
     print(
-        f"build: {len(paths)} libraries from csrc/*.cu in "
+        f"build: {len(paths)} libraries from csrc/*.cu and the mma probe in "
         f"{time.perf_counter() - t0} s (nvcc {build.nvcc_path()})",
         flush=True,
     )
     from cleisthenes_tpu_torch.ops.modmath import GROUP384
     from cleisthenes_tpu_torch.ops.modmath import P as P_DEFAULT
 
+    rates = mma_probe.mma_rates(torch)
+    b1_rate = b1_yardstick(rates["b1_m16n8k256_and_popc"], rates["s8_m16n8k32"])
+    print(f"mma rates (bit products a second, measured): {json.dumps(rates)}", flush=True)
+    print(f"b1 yardstick (the b1 reading x published s8 {S8_PUBLISHED_MACS_PER_S} / "
+          f"measured s8): {b1_rate}", flush=True)
     t_start = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(2026)
@@ -1059,8 +1329,9 @@ def main() -> int:
         "n100": kernel_phase(torch, 100, 33, BATCH, dev, False, rng),
         "modexp": modexp_phase(torch, P_DEFAULT, dev, True, rnd),
         "modexp_p2": modexp_phase(torch, P2, dev, False, rnd),
-        "n512": kernel_phase(torch, 512, 170, 4096, dev, True, rng),
-        "n300": kernel_phase(torch, 300, 99, 4096, dev, False, rng),
+        "n512": kernel_phase(torch, 512, 170, 4096, dev, True, rng, b1_rate),
+        "n300": kernel_phase(torch, 300, 99, 4096, dev, False, rng, b1_rate),
+        "edges": edge_phase(torch, dev, rng),
         "wide": wide_phase(torch, dev, rnd),
     }
     bad = [
@@ -1098,15 +1369,20 @@ def main() -> int:
                "wide_pow", "wide_dual_pow"),
         absent=("pow_grouped", "dual_pow", "pow"),
     )
+    # last, so that its epoch shifts nothing the timed paths share (the
+    # combine memo's fill, the profiler's host objects)
+    profile_phase(torch, 512, 4096)
     counts = dict(launches["sites"])
     counts["pow"] = dec_launches["sites"].get("pow", 0)
-    counts["mont_mul"] = phases["modexp"]["mont_mul"]["launches_per_call"]
     counts["gf65536_apply"] = launches_512["kernels"].get("gf65536_apply", 0)
     for name in ("wide_pow_fused", "wide_dual_pow_fused"):
         counts[name] = launches_384["kernels"].get(name, 0)
     records = dict(phases["n128"])
     records.update(phases["modexp"])
-    records["gf65536_apply"] = phases["n512"]["rs16_encode"]
+    records["gf65536_apply"] = dict(phases["n512"]["rs16_encode"])
+    k11 = records["gf65536_apply"]
+    if k11["tc_bound_ms"] < k11["int_bound_ms"]:
+        k11["bound_ms"], k11["bound_by"] = k11["tc_bound_ms"], k11["tc_bound_by"]
     for name in ("wide_pow_fused", "wide_dual_pow_fused"):
         records[name] = phases["wide"][f"{name}@384_epoch"]
     kernels = []
@@ -1125,9 +1401,24 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,
         })
-    missing = [k_["name"] for k_ in kernels if k_["launches"] <= 0]
+        if name in OFF_PATH:
+            kernels[-1]["kernel_phase_launches"] = rec["launches_per_call"]
+            kernels[-1]["off_path"] = OFF_PATH[name]
+        if name == "gf65536_apply":
+            kernels[-1]["bounds"] = {"int_ops_ms": rec["int_bound_ms"],
+                                     "tensor_core_ms": rec["tc_bound_ms"]}
+        elif name == "merkle_forest":
+            n512 = phases["n512"]["merkle_forest"]
+            kernels[-1]["bounds"] = {"n128_ms": rec["bound_ms"], "n512_ms": n512["bound_ms"]}
+            kernels[-1]["ms_n512"] = n512["kernel_ms"]
+    missing = [k_["name"] for k_ in kernels if k_["launches"] <= 0 and k_["name"] not in OFF_PATH]
     if missing:
         print(f"chip_smoke: main path never launched {missing}", file=sys.stderr)
+        return 1
+    unheld = [k_["name"] for k_ in kernels
+              if k_["name"] in OFF_PATH and k_["kernel_phase_launches"] <= 0]
+    if unheld:
+        print(f"chip_smoke: the kernel phase never launched {unheld}", file=sys.stderr)
         return 1
     print(f"total_s={time.perf_counter() - t_start} (after the build)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

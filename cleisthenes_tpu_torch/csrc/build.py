@@ -14,7 +14,8 @@ failed launch raises.
 Each C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; ``check()`` turns a nonzero code into an
 exception.  ``COUNTS`` tallies every launch by kernel (``gf256_apply``,
-``gf65536_apply``, ``sha256_rows``, ``merkle_verify``, ``mont_mul``,
+``gf65536_apply``, ``sha256_rows``, ``merkle_forest``, ``merkle_verify``,
+``mont_mul``,
 ``pow_fused``, ``dual_pow_fused``, ``comb_table``, ``comb_apply``,
 ``wide_pow_fused``, ``wide_dual_pow_fused``) and under each entry
 point it was made through — one per TPU kernel it replaces:
@@ -25,8 +26,8 @@ call: table build and accumulation), ``mont_mul`` (K10),
 ``rs16_encode`` and ``rs16_decode`` (K11), ``wide_pow`` and
 ``wide_dual_pow`` (K12).  A launch
 inside the fused K3 counts under K3 and under the entry point it shares
-(the re-encode under ``rs_encode`` too, a forest level under
-``merkle_forest`` and ``sha256_rows``).
+(the re-encode under ``rs_encode`` too, the forest under
+``merkle_forest``).
 """
 
 from __future__ import annotations
@@ -57,10 +58,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gf256_apply": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gf65536": {
-        "gf65536_apply": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gf65536_apply": [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "sha256": {
-        "sha256_rows": [_P, _LL, _LL, _LL, _LL, _LL, _I, _P, _LL, _LL, _P, _P],
+        "sha256_rows": [_P, _LL, _LL, _I, _P, _P],
+        "merkle_forest": [_P, _LL, _LL, _LL, _P, _P, _P],
         "merkle_verify": [_P, _P, _LL, _P, _I, _P, _P, _LL, _P],
     },
     "modexp": {

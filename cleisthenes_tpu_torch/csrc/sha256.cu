@@ -1,9 +1,9 @@
-// Batched SHA-256 and Merkle branch verification on Hopper (sm_90a).
+// Batched SHA-256, Merkle forests and branch verification on Hopper (sm_90a).
 //
 // Replaces the TPU kernels of cleisthenes_tpu/ops/sha256_xla.py:
 //   K4 sha256_batch (:127)     sha256_rows: one digest per fixed-length row
-//   K5 build_forest (:157)     sha256_rows, once per tree level (the leaf
-//                              launch also writes the empty-leaf padding)
+//   K5 build_forest (:157)     merkle_forest: one launch a forest, one block
+//                              a tree
 //   K6 verify_branches (:206)  merkle_verify: one thread per branch proof
 // and the forest half of K3 _decode_recheck_kernel (rs_xla.py:80).
 //
@@ -21,13 +21,27 @@
 // N=128 epoch the forest is 16,384 leaves of 129 bytes (3 compressions)
 // plus 16,256 nodes, the verify 16,384 branches of 3 compressions and 7
 // nodes: 0.49 G instructions, ~29 us of int work at peak, tiny next to
-// launch costs.  The design gives each message its own thread
+// launch costs; at N=512 the forest is 262,144 leaves and 261,632 nodes,
+// 1.8 G instructions, 0.107 ms.  The design gives each message its own thread
 // so the 64 rounds run in registers with no cross-thread traffic: the
 // 16-word schedule is a rolling window whose indices unroll to registers,
 // the padded block is assembled from the row bytes on the fly (no host
 // concatenation of the domain byte, no padded copy), and a verify thread
 // keeps its running digest in registers through all D levels, building each
 // 65-byte node message from the two digests with word shifts.
+//
+// The forest (merkle_forest_kernel) is one launch with one block per tree,
+// where the reference's and this port's first design ran a launch per level,
+// each with a dependent compression chain and, near the root, one or two
+// threads a tree.  The block stages its leaf rows in shared memory with
+// coalesced 16-byte loads (byte loads when a row is not 16-byte aligned),
+// builds each leaf's message words from them with byte permutes (the 0x00
+// prefix shifts the row by one byte), stores every digest as two 16-byte
+// words, and hashes the tree level by level with a barrier between levels;
+// a level reads its children from the forest in global memory, which a
+// barrier makes visible within the block, so any p up to the 65,536 leaves
+// of the GF(2^16) codec works.  sha256_rows keeps the one-thread-a-row form
+// for K4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,14 +153,13 @@ __device__ __forceinline__ void sha256_node(const uint32_t l[8],
   sha256_compress(st, w);
 }
 
-__device__ __forceinline__ void store_digest(const uint32_t st[8], uint8_t* out) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    out[4 * i] = (uint8_t)(st[i] >> 24);
-    out[4 * i + 1] = (uint8_t)(st[i] >> 16);
-    out[4 * i + 2] = (uint8_t)(st[i] >> 8);
-    out[4 * i + 3] = (uint8_t)st[i];
-  }
+// Byte-swapped word: a big-endian state word stored little-endian.
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
+
+__device__ __forceinline__ void store_digest16(const uint32_t st[8], uint8_t* out) {
+  uint4* o = reinterpret_cast<uint4*>(out);
+  o[0] = make_uint4(bswap32(st[0]), bswap32(st[1]), bswap32(st[2]), bswap32(st[3]));
+  o[1] = make_uint4(bswap32(st[4]), bswap32(st[5]), bswap32(st[6]), bswap32(st[7]));
 }
 
 __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t w[8]) {
@@ -156,29 +169,15 @@ __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t w[8]) {
            ((uint32_t)p[4 * i + 2] << 8) | (uint32_t)p[4 * i + 3];
 }
 
-// Thread t -> output row r = t % rows_out of group g = t / rows_out.  Rows
-// r < rows_in digest the msg_len bytes at in + g*in_group_stride +
-// r*in_row_stride; rows r >= rows_in copy pad_digest (Merkle leaf padding).
-__global__ void sha256_rows_kernel(const uint8_t* __restrict__ in,
-                                   long long groups, long long rows_in,
-                                   long long in_group_stride,
-                                   long long in_row_stride, long long msg_len,
-                                   int prefix, uint8_t* __restrict__ out,
-                                   long long rows_out, long long out_group_stride,
-                                   const uint8_t* __restrict__ pad_digest) {
+// Thread t digests the msg_len bytes of row t at in + t * msg_len.
+__global__ void sha256_rows_kernel(const uint8_t* __restrict__ in, long long rows,
+                                   long long msg_len, int prefix,
+                                   uint8_t* __restrict__ out) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= groups * rows_out) return;
-  const long long g = t / rows_out;
-  const long long r = t - g * rows_out;
-  uint8_t* dst = out + g * out_group_stride + r * 32;
-  if (r >= rows_in) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dst[i] = pad_digest[i];
-    return;
-  }
+  if (t >= rows) return;
   uint32_t st[8];
-  sha256_msg(in + g * in_group_stride + r * in_row_stride, msg_len, prefix, st);
-  store_digest(st, dst);
+  sha256_msg(in + t * msg_len, msg_len, prefix, st);
+  store_digest16(st, out + t * 32);
 }
 
 __global__ void merkle_verify_kernel(const uint8_t* __restrict__ roots,
@@ -213,28 +212,191 @@ __global__ void merkle_verify_kernel(const uint8_t* __restrict__ roots,
   ok[i] = diff == 0 ? 1 : 0;
 }
 
+// SHA-256(0x00 || row) of a row staged in shared memory as little-endian
+// words, zero from row word `lw` on, read 16 bytes at a time up to `lw4`
+// (lw rounded up to 4).  Message word i of a block holds row bytes 4i-1 ..
+// 4i+2 big-endian: __byte_perm of row words i-1 and i; row word -1 is 0, so
+// its top byte is the prefix 0x00.
+__device__ void sha256_leaf_staged(const uint32_t* row, int lw4, int len,
+                                   uint32_t st[8]) {
+  const int total = len + 1;
+  const int nblocks = (total + 9 + 63) / 64;
+  const int tw = total >> 2;  // message word of the 0x80 byte
+  const uint32_t tbit = 0x80u << (24 - 8 * (total & 3));
+  const uint32_t bitlen = (uint32_t)total * 8u;  // < 2^32: rows staged are < 64 KB
+  sha256_init(st);
+  uint32_t prev = 0;
+  for (int q = 0; q < nblocks; ++q) {
+    uint32_t w[16];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int m = 16 * q + 4 * c;
+      const uint4 v = m < lw4 ? *reinterpret_cast<const uint4*>(row + m)
+                              : make_uint4(0u, 0u, 0u, 0u);
+      w[4 * c] = __byte_perm(prev, v.x, 0x3456);
+      w[4 * c + 1] = __byte_perm(v.x, v.y, 0x3456);
+      w[4 * c + 2] = __byte_perm(v.y, v.z, 0x3456);
+      w[4 * c + 3] = __byte_perm(v.z, v.w, 0x3456);
+      prev = v.w;
+    }
+    const int tq = tw - 16 * q;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i == tq) w[i] |= tbit;
+    if (q == nblocks - 1) {
+      w[14] = 0;
+      w[15] = bitlen;
+    }
+    sha256_compress(st, w);
+  }
+}
+
+// One block per tree: the leaf digests of rows [0, n) (in batches of
+// `rows_per_batch` rows, staged in shared memory at `pitch_w` words a row
+// when pitch_w > 0, else hashed straight from global memory), the empty-leaf
+// digest in rows [n, p), then each level from the one below it, read back
+// from the forest.  Tree t reads shards + t n L and writes
+// forest + t (2p - 1) 32, leaf row first.
+__global__ void merkle_forest_kernel(const uint8_t* __restrict__ shards,
+                                     int n, long long L, uint8_t* forest,
+                                     int p, const uint8_t* __restrict__ pad_digest,
+                                     int rows_per_batch, int pitch_w,
+                                     int aligned16) {
+  extern __shared__ uint4 smem[];
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem);
+  const int T = blockDim.x, tid = threadIdx.x;
+  const uint8_t* src = shards + (long long)blockIdx.x * n * L;
+  uint8_t* tree = forest + (long long)blockIdx.x * (2ll * p - 1) * 32;
+  const long long lw4 = ((L + 3) / 4 + 3) / 4 * 4;
+
+  for (int i0 = 0; i0 < n; i0 += rows_per_batch) {
+    const int here = min(rows_per_batch, n - i0);
+    if (pitch_w > 0) {
+      __syncthreads();  // the last batch's readers are done
+      if (aligned16) {
+        const int chunks = (int)(L / 16);
+        for (int u = tid; u < here * chunks; u += T) {
+          const int rr = u / chunks, cc = u - rr * chunks;
+          reinterpret_cast<uint4*>(rows + rr * pitch_w)[cc] =
+              reinterpret_cast<const uint4*>(src + (i0 + rr) * L)[cc];
+        }
+      } else {
+        const int words = (int)lw4;
+        for (int u = tid; u < here * words; u += T) {
+          const int rr = u / words, ww = u - rr * words;
+          const uint8_t* r = src + (i0 + rr) * L;
+          uint32_t v = 0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (4ll * ww + c < L) v |= (uint32_t)r[4 * ww + c] << (8 * c);
+          rows[rr * pitch_w + ww] = v;
+        }
+      }
+      __syncthreads();
+    }
+    for (int t = tid; t < here; t += T) {
+      uint32_t st[8];
+      if (pitch_w > 0)
+        sha256_leaf_staged(rows + t * pitch_w, (int)lw4, (int)L, st);
+      else
+        sha256_msg(src + (i0 + t) * L, L, 0x00, st);
+      store_digest16(st, tree + (i0 + t) * 32ll);
+    }
+  }
+  const uint4* pad = reinterpret_cast<const uint4*>(pad_digest);
+  for (int i = n + tid; i < p; i += T) {
+    uint4* o = reinterpret_cast<uint4*>(tree + i * 32ll);
+    o[0] = pad[0];
+    o[1] = pad[1];
+  }
+  // the level of `width` digests at forest row off hashes into the next
+  int off = 0;
+  for (int width = p; width > 1; width >>= 1) {
+    __syncthreads();  // the level below is written and visible to the block
+    const int half = width >> 1;
+    for (int r = tid; r < half; r += T) {
+      const uint4* c = reinterpret_cast<const uint4*>(tree + (off + 2ll * r) * 32);
+      const uint4 q[4] = {c[0], c[1], c[2], c[3]};
+      uint32_t l[8], rt[8];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[4 * i] = bswap32(q[i].x);
+        l[4 * i + 1] = bswap32(q[i].y);
+        l[4 * i + 2] = bswap32(q[i].z);
+        l[4 * i + 3] = bswap32(q[i].w);
+        rt[4 * i] = bswap32(q[2 + i].x);
+        rt[4 * i + 1] = bswap32(q[2 + i].y);
+        rt[4 * i + 2] = bswap32(q[2 + i].z);
+        rt[4 * i + 3] = bswap32(q[2 + i].w);
+      }
+      uint32_t st[8];
+      sha256_node(l, rt, st);
+      store_digest16(st, tree + (off + width + r) * 32ll);
+    }
+    off += width;
+  }
+}
+
+constexpr int kForestThreads = 128;
+constexpr int kLeafSmemBytes = 64 * 1024;  // leaf staging a block
+
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace
 
-// Digest rows (see sha256_rows_kernel); prefix < 0 hashes the rows alone.
+// out (rows, 32) = SHA-256([prefix byte] || row) of each msg_len-byte row of
+// in; prefix < 0 hashes the rows alone; out must be 16-byte aligned.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int sha256_rows(const void* in, long long groups, long long rows_in,
-                           long long in_group_stride, long long in_row_stride,
-                           long long msg_len, int prefix, void* out,
-                           long long rows_out, long long out_group_stride,
-                           const void* pad_digest, void* stream) {
-  const long long n = groups * rows_out;
-  if (groups < 1 || rows_in < 1 || rows_out < rows_in || msg_len < 0 ||
-      prefix > 255 || (rows_out > rows_in && pad_digest == nullptr) ||
-      (n + kThreads - 1) / kThreads > 0x7FFFFFFFll)
+extern "C" int sha256_rows(const void* in, long long rows, long long msg_len,
+                           int prefix, void* out, void* stream) {
+  if (rows < 1 || msg_len < 0 || prefix > 255 || ((uintptr_t)out & 15) ||
+      (rows + kThreads - 1) / kThreads > 0x7FFFFFFFll)
     return (int)cudaErrorInvalidValue;
-  sha256_rows_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, groups, rows_in, in_group_stride, in_row_stride,
-      msg_len, prefix, (uint8_t*)out, rows_out, out_group_stride,
-      (const uint8_t*)pad_digest);
+  sha256_rows_kernel<<<grid_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)in, rows, msg_len, prefix, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// B Merkle trees of n leaf rows of L bytes each (tree t at shards + t n L)
+// into forest (B, 2p - 1, 32), p = the next power of two >= n, leaf row
+// first, root last; rows [n, p) of the leaf level copy pad_digest.  One
+// launch, one block a tree.  shards may be unaligned; forest and pad_digest
+// must be 16-byte aligned.  Returns cudaGetLastError() (0 on success).
+extern "C" int merkle_forest(const void* shards, long long B, long long n,
+                             long long L, void* forest, const void* pad_digest,
+                             void* stream) {
+  if (B < 1 || B > 0x7FFFFFFFll || n < 1 || n > (1ll << 20) || L < 0 ||
+      ((uintptr_t)forest & 15) || ((uintptr_t)pad_digest & 15))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merkle_forest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kLeafSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  int p = 1;
+  while (p < n) p <<= 1;
+  int threads = p < kForestThreads ? p : kForestThreads;
+  threads = (threads + 31) / 32 * 32;
+  // rows staged at a pitch of 4 (mod 8) words: 16-byte reads of one word
+  // offset by 8 lanes hit 8 distinct groups of 4 banks
+  const long long lw4 = ((L + 3) / 4 + 3) / 4 * 4;
+  long long pitch_w = lw4 % 8 == 4 ? lw4 : lw4 + 4;
+  long long rows = kLeafSmemBytes / (pitch_w * 4);
+  if (rows > threads) rows = threads;
+  if (rows < 1) {  // a row larger than the staging budget: read global memory
+    rows = threads;
+    pitch_w = 0;
+  }
+  const int aligned16 = L % 16 == 0 && ((uintptr_t)shards & 15) == 0;
+  const size_t smem = (size_t)(pitch_w * 4 * rows);
+  merkle_forest_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)shards, (int)n, L, (uint8_t*)forest, p,
+      (const uint8_t*)pad_digest, (int)rows, (int)pitch_w, aligned16);
   return (int)cudaGetLastError();
 }
 

@@ -172,3 +172,18 @@ def lift_to_bits(a: np.ndarray) -> np.ndarray:
     m, k = a.shape
     g = _bitmat_table()[a]  # (m, k, 8, 8)
     return g.transpose(0, 2, 1, 3).reshape(8 * m, 8 * k)
+
+
+def bytes_to_bits(x: np.ndarray) -> np.ndarray:
+    """(r, l) uint8 -> (8r, l) uint8 bit-planes, LSB-first per byte."""
+    r, l = x.shape
+    bits = ((x[:, None, :] >> np.arange(8, dtype=np.uint8)[None, :, None]) & 1)
+    return bits.reshape(8 * r, l)
+
+
+def bits_to_bytes(bits: np.ndarray) -> np.ndarray:
+    """(8r, l) 0/1 -> (r, l) uint8, inverse of bytes_to_bits."""
+    r8, l = bits.shape
+    b = bits.reshape(r8 // 8, 8, l).astype(np.uint32)
+    weights = (1 << np.arange(8, dtype=np.uint32))[None, :, None]
+    return (b * weights).sum(axis=1).astype(np.uint8)

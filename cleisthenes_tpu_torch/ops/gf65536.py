@@ -8,14 +8,15 @@ alpha=2, supporting up to 65536 shard indices.
 
 Two representations live here, as in ops/gf256.py:
 
-1. exp/log tables (512 KiB + 256 KiB) for host math and for the CUDA
-   codec (ops/rs16_cuda.py, csrc/gf65536.cu) — the full 2^16 x 2^16
-   product table would be 4 GiB, so vectorized multiplication goes
-   through exp[log a + log b] with zero masking instead.
+1. exp/log tables (512 KiB + 256 KiB) for host math and for the plain
+   PyTorch version of the CUDA codec (ops/rs16_cuda.py) — the full
+   2^16 x 2^16 product table would be 4 GiB, so vectorized
+   multiplication goes through exp[log a + log b] with zero masking.
 2. The bit-matrix lifting the TPU codec runs on its matrix unit: an
    (m, k) GF(2^16) matrix lifts to a (16m, 16k) 0/1 matrix over
-   bit-planes.  The port does not use it on the card; it is kept for
-   the parity tests against the reference's lifted kernels.
+   bit-planes.  The card's kernel (csrc/gf65536.cu) multiplies the same
+   lifted matrix on its binary tensor cores, lifting in shared memory;
+   ``lift_to_bits`` here is the reference's form, for the parity tests.
 
 Symbols are uint16; shard byte rows of even length L view as L/2
 symbols little-endian (ops/rs16.py handles the byte<->symbol view).

@@ -21,13 +21,16 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import List
+import hashlib
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from cleisthenes_tpu_torch.ops import sha256_cuda
 
+_LEAF_PREFIX = b"\x00"
+_NODE_PREFIX = b"\x01"
 _EMPTY_LEAF_DIGEST = sha256_cuda.EMPTY_LEAF_DIGEST
 _next_pow2 = sha256_cuda.next_pow2
 
@@ -63,9 +66,29 @@ class MerkleTree:
 class MerkleBackend(abc.ABC):
     """Batched tree building + branch verification."""
 
+    def build(self, shards: np.ndarray) -> MerkleTree:
+        """(N, L) uint8 shard matrix -> tree over N leaves."""
+        return self.build_batch(shards[None])[0]
+
     @abc.abstractmethod
     def build_batch(self, shards: np.ndarray) -> List[MerkleTree]:
         """(B, N, L) uint8 shards -> B trees."""
+
+    def verify_branch(
+        self, root: bytes, leaf: bytes, branch: Sequence[bytes], index: int
+    ) -> bool:
+        """One proof, pure hashlib: a scalar verify is a handful of
+        SHA-256 calls, cheaper than any array assembly or device call.
+        Batch waves use verify_batch."""
+        cur = hashlib.sha256(_LEAF_PREFIX + leaf).digest()
+        idx = index
+        for sib in branch:
+            if idx & 1:
+                cur = hashlib.sha256(_NODE_PREFIX + sib + cur).digest()
+            else:
+                cur = hashlib.sha256(_NODE_PREFIX + cur + sib).digest()
+            idx >>= 1
+        return cur == root
 
     @abc.abstractmethod
     def verify_batch(

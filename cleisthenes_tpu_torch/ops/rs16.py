@@ -7,7 +7,9 @@ rows of even length L are L/2 little-endian uint16 symbols.
 - ``Cpu16ErasureCoder``: the host reference (exp/log-table products
   over uint16 symbols), a copy of the reference's.
 - ``Cuda16ErasureCoder``: every call, single or batched, runs on
-  ``device`` through ops/rs16_cuda.py (K11, csrc/gf65536.cu).  Unlike
+  ``device`` through ops/rs16_cuda.py (K11, csrc/gf65536.cu); its encode
+  matrix is checked systematic once, here, so the kernel multiplies the
+  parity rows only.  Unlike
   the reference's ``Xla16ErasureCoder`` it sends no single instance and
   no mixed erasure pattern to the host: a mixed batch decodes with one
   (B, k, k) stack of inverses.  It has no fused ``decode_recheck_batch``,
@@ -23,7 +25,7 @@ import torch
 
 from cleisthenes_tpu_torch.ops import gf65536 as gf
 from cleisthenes_tpu_torch.ops.backend import ErasureCoder, resolve_device
-from cleisthenes_tpu_torch.ops.rs16_cuda import rs16_decode, rs16_encode
+from cleisthenes_tpu_torch.ops.rs16_cuda import mark_systematic, rs16_decode, rs16_encode
 
 
 def _to_symbols(x: np.ndarray) -> np.ndarray:
@@ -82,6 +84,7 @@ class Cuda16ErasureCoder(ErasureCoder):
         self.device = resolve_device(device)
         self.matrix = gf.systematic_rs_matrix(n, k)
         self._enc = self._put(self.matrix)
+        mark_systematic(self._enc, self.matrix)
         # per-instance cache (a class-level cache would pin instances)
         self._decode_matrix = functools.lru_cache(maxsize=512)(
             self._decode_matrix_impl

@@ -2,13 +2,17 @@
 
 The counterpart of ``cleisthenes_tpu/ops/rs16_xla_kernels.py``.  One
 CUDA kernel, ``gf65536_apply`` (csrc/gf65536.cu), computes
-out[b] = M_b (*) x[b] over GF(2^16) on uint16 symbols with an exp/log
-table, M shared or one per instance, and carries both TPU kernels of
-the wide codec:
+out[b] = M_b (*) x[b] over GF(2^16) on uint16 symbols as the reference
+does, as a GF(2) product of the lifted (16m, 16k) 0/1 matrix with the
+symbols' bits, on the binary tensor cores; M shared or one per instance.
+It carries both TPU kernels of the wide codec:
 
-- encode (rs16_xla_kernels.py:47/:57): M = the full (n, k) systematic
-  matrix, whose identity top rows copy the data symbols through, so
-  the result is the whole (B, n, S) shard set;
+- encode (rs16_xla_kernels.py:47/:57): given the (n, k) systematic
+  matrix, the kernel multiplies its n - k parity rows and copies the data
+  symbols into rows [0, k), so the result is the whole (B, n, S) shard
+  set.  The matrix's identity top is checked on the host once per matrix
+  (``mark_systematic``, called where the codec builds it), never per call,
+  and an encode given a matrix it did not check raises;
 - decode (:53/:58): M = the inverse of the surviving rows, inverted on
   the host (gf65536.gf_mat_inv), shared (k, k) or per instance
   (B, k, k).
@@ -25,6 +29,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from cleisthenes_tpu_torch.csrc import build as _kb
 from cleisthenes_tpu_torch.ops import gf65536 as gf
@@ -39,7 +44,7 @@ _ZERO_LOG = 1 << 20
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device):
     """(exp (65536,) uint16 with exp[65535] = 0, log (65536,) uint16)
-    on ``device``: the kernel's layout."""
+    on ``device``, for the plain version."""
     exp = np.zeros(gf.ORDER, dtype=np.uint16)
     exp[:_ORDER] = gf.GF_EXP[:_ORDER]
     return (
@@ -90,12 +95,47 @@ def gf65536_apply_plain(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.uint16)
 
 
+# matrices checked by mark_systematic: tensor -> its version at the check
+_SYSTEMATIC = WeakIdKeyDictionary()
+
+
+def mark_systematic(enc_mat: torch.Tensor, host: np.ndarray) -> None:
+    """Record that ``enc_mat``, a copy of the host array ``host``, is an
+    (n, k) matrix with an identity top, checking ``host``; the codec calls
+    this where it builds the matrix, so that no encode reads the matrix
+    back from the card."""
+    if host.ndim != 2 or host.shape[0] < host.shape[1]:
+        raise ValueError(
+            f"mark_systematic: need an (n, k) systematic matrix, n >= k, got {host.shape}"
+        )
+    if tuple(enc_mat.shape) != host.shape:
+        raise ValueError(f"mark_systematic: {tuple(enc_mat.shape)} is not {host.shape}")
+    k = host.shape[1]
+    if not np.array_equal(host[:k], np.eye(k, dtype=host.dtype)):
+        raise ValueError(f"mark_systematic: a {host.shape} matrix without an identity top")
+    _SYSTEMATIC[enc_mat] = enc_mat._version
+
+
+def _require_systematic(enc_mat: torch.Tensor) -> None:
+    """Raise unless ``mark_systematic`` checked ``enc_mat`` and it has not
+    been written to since."""
+    if _SYSTEMATIC.get(enc_mat) != enc_mat._version:
+        raise ValueError(
+            "rs16_encode: the matrix was not checked by mark_systematic, or "
+            "was written to since"
+        )
+
+
 def _gf65536_apply(
-    mat: torch.Tensor, x: torch.Tensor, sites: Tuple[str, ...]
+    mat: torch.Tensor, x: torch.Tensor, sites: Tuple[str, ...], systematic: bool
 ) -> torch.Tensor:
     """The kernel wrapper: plain version on CPU tensors, one
-    gf65536_apply launch (counted under ``sites``) on CUDA tensors."""
+    gf65536_apply launch (counted under ``sites``) on CUDA tensors.  With
+    ``systematic`` the kernel multiplies the parity rows only and copies
+    ``x`` into rows [0, k)."""
     _check_apply(mat, x)
+    if systematic:
+        _require_systematic(mat)
     if not _on_cuda(mat, x):
         return gf65536_apply_plain(mat, x)
     b, k, s = x.shape
@@ -103,13 +143,14 @@ def _gf65536_apply(
     out = torch.empty((b, m, s), dtype=torch.uint16, device=x.device)
     if b == 0 or s == 0:
         return out
-    exp_t, log_t = _tables(x.device)
+    row0 = k if systematic else 0
     lib = _kb.load("gf65536")
     with torch.cuda.device(x.device):
         rc = lib.gf65536_apply(
-            mat.data_ptr(), m * k if mat.dim() == 3 else 0,
-            exp_t.data_ptr(), log_t.data_ptr(), x.data_ptr(), out.data_ptr(),
-            b, m, k, s, _kb.stream_of(x),
+            mat.data_ptr() + row0 * k * mat.element_size(),
+            m * k if mat.dim() == 3 else 0,
+            x.data_ptr(), out.data_ptr(), b, m - row0, k, s, row0,
+            _kb.stream_of(x),
         )
     _kb.check(rc, "gf65536_apply")
     _kb.COUNTS.add("gf65536_apply", sites)
@@ -117,15 +158,15 @@ def _gf65536_apply(
 
 
 def rs16_encode(enc_mat: torch.Tensor, syms: torch.Tensor) -> torch.Tensor:
-    """K11 encode: (n, k) systematic matrix, (B, k, S) data symbols ->
-    (B, n, S) shards (data rows, then parity)."""
-    return _gf65536_apply(enc_mat, syms, ("rs16_encode",))
+    """K11 encode: (n, k) systematic matrix (identity top), (B, k, S)
+    data symbols -> (B, n, S) shards (data rows, then parity)."""
+    return _gf65536_apply(enc_mat, syms, ("rs16_encode",), True)
 
 
 def rs16_decode(dec_mat: torch.Tensor, syms: torch.Tensor) -> torch.Tensor:
     """K11 decode: (k, k) shared or (B, k, k) per-instance inverse,
     (B, k, S) surviving shard symbols -> (B, k, S) data symbols."""
-    return _gf65536_apply(dec_mat, syms, ("rs16_decode",))
+    return _gf65536_apply(dec_mat, syms, ("rs16_decode",), False)
 
 
-__all__ = ["gf65536_apply_plain", "rs16_decode", "rs16_encode"]
+__all__ = ["gf65536_apply_plain", "mark_systematic", "rs16_decode", "rs16_encode"]

@@ -3,13 +3,13 @@
 The port's counterpart of ``cleisthenes_tpu/ops/sha256_xla.py``: the
 RBC ECHO phase costs N^2 log N independent hashes per epoch (reference
 docs/HONEYBADGER-EN.md:96), so hashing runs over a batch axis with one
-CUDA thread per message (csrc/sha256.cu).
+CUDA thread per message (csrc/sha256.cu), a forest with one block a tree.
 
 Three entry points, each with its plain PyTorch version beside it:
 
 - ``sha256_rows``      K4, ``sha256_batch`` (sha256_xla.py:127)
 - ``build_forest``     K5, ``build_forest`` (sha256_xla.py:157): one
-                       ``sha256_rows`` launch per tree level
+                       ``merkle_forest`` launch a forest, a block a tree
 - ``verify_branches``  K6, ``verify_branches`` (sha256_xla.py:206)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
@@ -192,27 +192,6 @@ def _empty_leaf_on(device: torch.device) -> torch.Tensor:
     return _empty_leaf(device)
 
 
-def _launch_rows(
-    src: torch.Tensor, groups: int, rows_in: int, in_group_stride: int,
-    in_row_stride: int, msg_len: int, prefix: Optional[int],
-    out: torch.Tensor, out_offset: int, rows_out: int, out_group_stride: int,
-    sites: Tuple[str, ...],
-    src_offset: int = 0,
-) -> None:
-    """One sha256_rows launch; offsets and strides in bytes."""
-    lib = _kb.load("sha256")
-    pad = _empty_leaf_on(out.device) if rows_out > rows_in else None
-    with torch.cuda.device(out.device):
-        rc = lib.sha256_rows(
-            src.data_ptr() + src_offset, groups, rows_in, in_group_stride,
-            in_row_stride, msg_len, -1 if prefix is None else prefix,
-            out.data_ptr() + out_offset, rows_out, out_group_stride,
-            None if pad is None else pad.data_ptr(), _kb.stream_of(out),
-        )
-    _kb.check(rc, "sha256_rows")
-    _kb.COUNTS.add("sha256_rows", sites)
-
-
 def sha256_rows(msgs: torch.Tensor, prefix: Optional[int] = None) -> torch.Tensor:
     """SHA-256 of [prefix byte] || each row: (B, L) u8 -> (B, 32) u8."""
     _check_u8("sha256_rows", msgs, 2)
@@ -221,32 +200,37 @@ def sha256_rows(msgs: torch.Tensor, prefix: Optional[int] = None) -> torch.Tenso
     b, l = msgs.shape
     out = torch.empty((b, 32), dtype=torch.uint8, device=msgs.device)
     if b:
-        _launch_rows(msgs, 1, b, 0, l, l, prefix, out, 0, b, 0, ("sha256_rows",))
+        lib = _kb.load("sha256")
+        with torch.cuda.device(msgs.device):
+            rc = lib.sha256_rows(
+                msgs.data_ptr(), b, l, -1 if prefix is None else prefix,
+                out.data_ptr(), _kb.stream_of(msgs),
+            )
+        _kb.check(rc, "sha256_rows")
+        _kb.COUNTS.add("sha256_rows", ("sha256_rows",))
     return out
 
 
-FOREST_SITES = ("merkle_forest", "sha256_rows")
+FOREST_SITES = ("merkle_forest",)
 
 
 def _build_forest(shards: torch.Tensor, sites: Tuple[str, ...]) -> torch.Tensor:
+    """One merkle_forest launch (counted under ``sites``): one block a
+    tree builds its leaf level and every level above it."""
     b, n, l = shards.shape
     p = next_pow2(n)
     forest = torch.empty((b, 2 * p - 1, 32), dtype=torch.uint8, device=shards.device)
     if b == 0:
         return forest
-    tree = (2 * p - 1) * 32  # bytes per tree
-    # leaf level, padded to p rows with the empty-leaf digest
-    _launch_rows(shards, b, n, n * l, l, l, LEAF_PREFIX, forest, 0, p, tree, sites)
-    off, width = 0, p
-    while width > 1:
-        half = width // 2
-        # node r of the next level hashes the adjacent pair (2r, 2r+1)
-        _launch_rows(
-            forest, b, half, tree, 64, 64, NODE_PREFIX, forest,
-            (off + width) * 32, half, tree, sites, src_offset=off * 32,
+    lib = _kb.load("sha256")
+    pad = _empty_leaf_on(shards.device)
+    with torch.cuda.device(shards.device):
+        rc = lib.merkle_forest(
+            shards.data_ptr(), b, n, l, forest.data_ptr(), pad.data_ptr(),
+            _kb.stream_of(shards),
         )
-        off += width
-        width = half
+    _kb.check(rc, "merkle_forest")
+    _kb.COUNTS.add("merkle_forest", sites)
     return forest
 
 

@@ -130,3 +130,125 @@ def test_decode_recheck_matches_jax():
     d2, r2 = coder.decode_recheck_batch(pats, sh)
     assert np.array_equal(d2, data)
     assert np.array_equal(r2, np.asarray(want_roots))
+
+
+# -- tests/test_merkle.py's TestMerkle cases, re-pointed at the port: the
+# host backend and the card's backend on a CPU device (its plain versions)
+
+def _port_merkle(backend: str):
+    from cleisthenes_tpu_torch.ops.merkle import make_merkle
+
+    return make_merkle(backend, device="cpu")
+
+
+merkle_rng = np.random.default_rng(7)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+class TestPortMerkle:
+    @pytest.mark.parametrize("n", [1, 2, 3, 4, 7, 16])
+    def test_build_and_verify_all_branches(self, backend, n):
+        m = _port_merkle(backend)
+        shards = merkle_rng.integers(0, 256, (n, 64)).astype(np.uint8)
+        tree = m.build(shards)
+        for j in range(n):
+            assert m.verify_branch(
+                tree.root, shards[j].tobytes(), tree.branch(j), j
+            ), f"branch {j} of {n}"
+
+    def test_tampered_leaf_rejected(self, backend, n=7):
+        m = _port_merkle(backend)
+        shards = merkle_rng.integers(0, 256, (n, 64)).astype(np.uint8)
+        tree = m.build(shards)
+        bad = bytearray(shards[3].tobytes())
+        bad[0] ^= 1
+        assert not m.verify_branch(tree.root, bytes(bad), tree.branch(3), 3)
+
+    def test_wrong_index_rejected(self, backend, n=8):
+        m = _port_merkle(backend)
+        shards = merkle_rng.integers(0, 256, (n, 32)).astype(np.uint8)
+        tree = m.build(shards)
+        assert not m.verify_branch(
+            tree.root, shards[3].tobytes(), tree.branch(3), 4
+        )
+
+    def test_tampered_branch_rejected(self, backend, n=4):
+        m = _port_merkle(backend)
+        shards = merkle_rng.integers(0, 256, (n, 32)).astype(np.uint8)
+        tree = m.build(shards)
+        branch = tree.branch(0)
+        branch[1] = b"\x00" * 32
+        assert not m.verify_branch(tree.root, shards[0].tobytes(), branch, 0)
+
+    def test_batch_build_matches_single(self, backend):
+        m = _port_merkle(backend)
+        shards = merkle_rng.integers(0, 256, (5, 7, 48)).astype(np.uint8)
+        trees = m.build_batch(shards)
+        for i, t in enumerate(trees):
+            assert t.root == m.build(shards[i]).root
+
+    def test_batch_verify(self, backend):
+        """The ECHO hot path: many (root, leaf, branch, index) checks in
+        one call, including an invalid one."""
+        m = _port_merkle(backend)
+        n = 8
+        shards = merkle_rng.integers(0, 256, (n, 64)).astype(np.uint8)
+        tree = m.build(shards)
+        roots = np.stack([np.frombuffer(tree.root, dtype=np.uint8)] * n)
+        leaves = shards.copy()
+        branches = np.stack(
+            [
+                np.stack([np.frombuffer(s, dtype=np.uint8) for s in tree.branch(j)])
+                for j in range(n)
+            ]
+        )
+        indices = np.arange(n)
+        leaves[2] ^= 0xFF  # corrupt one
+        ok = m.verify_batch(roots, leaves, branches, indices)
+        want = np.ones(n, dtype=bool)
+        want[2] = False
+        assert np.array_equal(ok, want)
+
+
+def test_backends_identical_roots():
+    shards = merkle_rng.integers(0, 256, (7, 128)).astype(np.uint8)
+    assert CpuMerkle().build(shards).root == CudaMerkle(device="cpu").build(shards).root
+
+
+def test_branch_index_out_of_range():
+    m = CpuMerkle()
+    tree = m.build(merkle_rng.integers(0, 256, (4, 16)).astype(np.uint8))
+    with pytest.raises(IndexError):
+        tree.branch(4)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+@pytest.mark.parametrize("n", [1, 5, 16])
+def test_build_and_verify_branch_match_reference(backend, n):
+    """``build(...).root``, every branch and ``verify_branch`` (true
+    proofs, a tampered leaf, a wrong index) equal the reference's on the
+    same seeded shards."""
+    rng = np.random.default_rng(300 + n)
+    shards = rng.integers(0, 256, (n, 40), dtype=np.uint8)
+    ours, ref = _port_merkle(backend), RefCpuMerkle()
+    tree, ref_tree = ours.build(shards), ref.build(shards)
+    assert tree.root == ref_tree.root and tree.depth == ref_tree.depth
+    for j in range(n):
+        assert tree.branch(j) == ref_tree.branch(j)
+        for leaf, idx in ((shards[j].tobytes(), j),
+                          (bytes([shards[j, 0] ^ 1]) + shards[j, 1:].tobytes(), j),
+                          (shards[j].tobytes(), j ^ 1)):
+            got = ours.verify_branch(tree.root, leaf, tree.branch(j), idx)
+            assert got == ref.verify_branch(ref_tree.root, leaf, ref_tree.branch(j), idx)
+
+
+def test_chip_smoke_off_path_kernels_are_listed():
+    """chip_smoke.py's OFF_PATH (kernels no epoch path launches, held to
+    0 launches on every path) names kernels of its kernels line, each
+    with its reason; sha256_rows is one since the forest is one kernel."""
+    import chip_smoke as cs
+
+    names = {name for name, _, _ in cs.KERNELS}
+    assert set(cs.OFF_PATH) <= names
+    assert "sha256_rows" in cs.OFF_PATH and "merkle_forest" not in cs.OFF_PATH
+    assert all(len(reason) > 20 for reason in cs.OFF_PATH.values())

@@ -121,3 +121,33 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         strided = torch.zeros((2, 4, 3), dtype=torch.uint8).transpose(1, 2)
         rs_cuda.rs_encode(torch.zeros((5, 3), dtype=torch.uint8), strided)
+
+
+# -- tests/test_erasure.py's TestGF256 bit-lifting cases, re-pointed at
+# the port's module
+
+def test_bit_lifting_equals_gf_matmul():
+    rng = np.random.default_rng(19)
+    a = rng.integers(0, 256, (6, 4)).astype(np.uint8)
+    x = rng.integers(0, 256, (4, 33)).astype(np.uint8)
+    want = gf256.gf_matmul(a, x)
+    g = gf256.lift_to_bits(a)
+    got_bits = (g.astype(np.int64) @ gf256.bytes_to_bits(x).astype(np.int64)) & 1
+    assert np.array_equal(gf256.bits_to_bytes(got_bits.astype(np.uint8)), want)
+
+
+def test_bytes_bits_roundtrip():
+    rng = np.random.default_rng(20)
+    x = rng.integers(0, 256, (7, 19)).astype(np.uint8)
+    assert np.array_equal(gf256.bits_to_bytes(gf256.bytes_to_bits(x)), x)
+
+
+def test_bytes_bits_match_reference():
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 256, (9, 23)).astype(np.uint8)
+    bits = gf256.bytes_to_bits(x)
+    ref_bits = ref_gf.bytes_to_bits(x)
+    assert bits.dtype == ref_bits.dtype and np.array_equal(bits, ref_bits)
+    noisy = rng.integers(0, 2, bits.shape).astype(np.uint8)
+    back, ref_back = gf256.bits_to_bytes(noisy), ref_gf.bits_to_bytes(noisy)
+    assert back.dtype == ref_back.dtype and np.array_equal(back, ref_back)
