@@ -15,12 +15,15 @@ before printing any result.  It prints, in order:
    (``b1_yardstick``: the b1 reading scaled by NVIDIA's published s8 peak
    over the s8 reading);
 2. the kernel phases: every RBC entry point — RS encode, shared and
-   per-instance RS decode, ``sha256_rows``, the Merkle forest, the
-   branch verify and the fused decode-recheck — on the card at the
-   N=128/f=42 shapes of a real epoch and on an N=100/f=33 roster (whose
-   forest pads leaves with the empty-leaf digest), each held byte for
-   byte against its plain PyTorch version on the same inputs, with
-   samples held against ``hashlib``; the modexp entry points — the
+   per-instance RS decode (after a decode by the identity, which pins
+   the bit order of the codec's tensor-core fragments), ``sha256_rows``,
+   the Merkle forest, the branch verify and the fused decode-recheck —
+   on the card at the N=128/f=42 shapes of a real epoch and on an
+   N=100/f=33 roster (whose forest pads leaves with the empty-leaf
+   digest), each held byte for byte against its plain PyTorch version on
+   the same inputs, with samples held against ``hashlib``, the GF(2^8)
+   codec's calls with their bit products and tensor-core bound; the
+   modexp entry points — the
    comb at both epochs' round-0 shapes (N=128: 257 bases, g with
    32,768 exponents and 256 bases with 256 each; N=512: 1,025 bases, g
    with 524,288 and 1,024 with 1,024 each; one table per base as the
@@ -36,11 +39,16 @@ before printing any result.  It prints, in order:
    the bit order of the tensor-core fragments, then encode, shared and
    per-instance decode, with the 512-leaf forest and the D=9 branch
    verify) and, parity only, at N=300/f=99, encode held also against the
-   host ``Cpu16ErasureCoder``, K11 and the forest held to one launch a
-   call; untimed, the paths of both that no epoch takes (``edge_phase``:
-   K11 past one lifted span, at an odd symbol count and off a 4-byte
+   host ``Cpu16ErasureCoder``, every codec call, forest and verify held
+   to one launch a call (K3 to three); untimed, the paths that no epoch
+   takes (``edge_phase``: the GF(2^8) codec at k = 1, 31, 32, 33, 44 and
+   200, an odd parity row count, odd L and x off a 4-byte boundary; K11
+   past one lifted span, at an odd symbol count and off a 4-byte
    boundary; forests of rows staged by byte loads and of rows past the
-   64 KB staging budget); and the wide pow and dual pow (K12) in the
+   64 KB staging budget; the branch verify at D=0, on 1,001-byte leaves
+   off alignment, on >64 KB leaves, at N=100's 10,000 branches and with
+   index bits above 31, one leaf, sibling and index tampered a warp);
+   and the wide pow and dual pow (K12) in the
    384-bit (batch 2048), 768-bit (512) and 2048-bit (128) groups, at the
    GROUP384 epoch's own calls (a pow of 98,304 exponents over 257
    bases, a dual pow of 22,016 rows, half of them Lagrange rows) and,
@@ -54,8 +62,8 @@ before printing any result.  It prints, in order:
    bound (for a pow or dual pow, from the fewest Montgomery products a
    fixed-window method needs for the run's exponents; for the comb, the
    fewest a comb of any width 2..8 per base needs, ``least_comb``; for
-   K11 also the tensor-core bound, its bit products at the b1 yardstick
-   against its bytes);
+   the GF codecs also the tensor-core bound, their bit products at the
+   b1 yardstick against their bytes);
 3. three paths through ``LockstepCluster`` with its defaults (the
    'cuda' backend), each committing 3 epochs of random 64-byte
    transactions, every one exactly once, with the launch counts set to
@@ -84,8 +92,9 @@ before printing any result.  It prints, in order:
 5. the seconds the run took after the build, the ``{"kernels": [...]}``
    JSON line (K1-K12; ``OFF_PATH``'s kernels, mont_mul and sha256_rows,
    which no path launches, carry the paths' 0 with their kernel-phase
-   launches and the reason beside it; K11's and K5's entries carry both
-   their bounds), the card line again, and last
+   launches and the reason beside it; K1's, K2's, K3's and K11's entries
+   carry both their bounds, K5's and K6's their N=512 time and bound),
+   the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere is zero: all of this is exact integer math.  Any
@@ -109,20 +118,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM 3.35 TB/s.
 # SHA-256 and the GF(2^8) table products are 32-bit integer ALU work,
 # which the data sheet does not list: an SM issues 64 INT32 lanes per
-# clock (half its 128 FP32 lanes), so 132 SMs x 64 x 1.98 GHz.
+# clock (half its 128 FP32 lanes), so 132 SMs x 64 x 1.98 GHz; its four
+# sub-partitions issue one warp instruction a clock each, whatever the
+# pipe (IMADs go to the FMA pipe), so 132 x 4 x 32 x 1.98 GHz in all.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 # dense INT8 tensor-core peak of the same data sheet, 1,979 TOPS, at two
 # operations a multiply-accumulate (K11's b1 yardstick scales by it)
 S8_PUBLISHED_MACS_PER_S = 1979e12 / 2
-# 32-bit instructions sm_90a issues for SHA-256, counted in the SASS by
-# ``python3 -m cleisthenes_tpu_torch.csrc.sass_ops``: 1,383 for one
-# compression of words that do not fold (14 per round: 6 SHF, 4 LOP3 for
-# the Sigmas, Ch and Maj, 4 adds; 10 per schedule word; 8 final adds),
-# and 2,675 for the two compressions of a 65-byte Merkle node, whose
-# second block is mostly constant padding.
-SHA_OPS_PER_BLOCK = 1383
-SHA_OPS_PER_NODE = 2675
 # the second 256-bit safe prime of the repository's group tests
 P2 = 0x93A40B764F1F5026ADA7C38AA3EF4EE81E01E89F9FE80837B1E370913DA99F13
 # the wide groups of bench.py's wide-group section, with its batches:
@@ -173,18 +177,33 @@ def blocks(msg_len: int) -> int:
     return (msg_len + 9 + 63) // 64
 
 
-def bound(nbytes: int, ops: int):
-    """(bound_ms, bound_by) from bytes moved and int32 operations."""
+def bound(nbytes: int, ops: int, issued: int = 0):
+    """(bound_ms, bound_by) from bytes moved against int32 operations:
+    ``ops`` on the INT32 lanes and, where their pipes are known,
+    ``issued`` (those and the rest) at the issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
+    t_ops = max(ops / INT32_OPS_PER_S, issued / ISSUE_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gf2_bit_products(m: int, k: int, cols: int) -> int:
-    """Bit products of K11's function as a lifted GF(2) product: 16 m
-    lifted rows x 16 k lifted columns x cols symbol columns (the zeros
-    the kernel pads k with are not work the function needs)."""
-    return 16 * m * 16 * k * cols
+def sha_ops(n_blocks: int, n_nodes: int):
+    """(INT32-pipe, issued) instructions of ``n_blocks`` SHA-256
+    compressions and ``n_nodes`` Merkle node hashes, as sm_90a runs them:
+    ``sass_ops``' ``SHA_BLOCK_OPS`` and ``SHA_NODE_OPS``, counted in the
+    SASS (14 a round: 6 SHF, 4 LOP3 for the Sigmas, Ch and Maj, 4 adds;
+    10 a schedule word; 8 final adds; part of the adds are IMADs on the
+    FMA pipe)."""
+    from cleisthenes_tpu_torch.csrc.sass_ops import SHA_BLOCK_OPS, SHA_NODE_OPS
+
+    return tuple(n_blocks * b + n_nodes * nd for b, nd in zip(SHA_BLOCK_OPS, SHA_NODE_OPS))
+
+
+def gf2_bit_products(m: int, k: int, cols: int, e: int = 16) -> int:
+    """Bit products of a GF(2^e) matrix application as a lifted GF(2)
+    product (K11: e = 16; K1/K2: e = 8): e m lifted rows x e k lifted
+    columns x cols symbol columns (the zeros the kernels pad k with are
+    not work the function needs)."""
+    return e * m * e * k * cols
 
 
 def b1_yardstick(b1_rate: float, s8_rate: float) -> float:
@@ -197,12 +216,15 @@ def b1_yardstick(b1_rate: float, s8_rate: float) -> float:
     return max(b1_rate, b1_rate * S8_PUBLISHED_MACS_PER_S / s8_rate)
 
 
-def tc_bound(nbytes: int, bit_products: int, b1_rate: float):
-    """(bound_ms, bound_by) of K11 on the binary tensor cores: bytes at
-    the HBM rate against bit products at ``b1_rate`` (bit products a
-    second, ``b1_yardstick``)."""
+def tc_bound(nbytes: int, bit_products: int, b1_rate: float, int_ops: int = 0,
+             issued: int = 0):
+    """(bound_ms, bound_by) of a GF codec kernel on the binary tensor
+    cores: bytes at the HBM rate against bit products at ``b1_rate`` (bit
+    products a second, ``b1_yardstick``) and, for K3's forest, int32
+    operations beside them (``int_ops`` on the INT32 lanes, ``issued`` at
+    the issue rate, as ``bound`` counts them)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = bit_products / b1_rate
+    t_ops = max(bit_products / b1_rate, int_ops / INT32_OPS_PER_S, issued / ISSUE_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -238,6 +260,44 @@ def hashlib_root(shards) -> bytes:
     return level[0]
 
 
+def tree_branches(np, forest_np, n: int):
+    """(branches (B n, D, 32), indices (B n,) int64) of every leaf of the
+    B trees of n leaves in ``forest_np`` (B, 2p - 1, 32), as
+    protocol/spmd.py assembles the N^2 ECHO branches."""
+    b = forest_np.shape[0]
+    p = (forest_np.shape[1] + 1) // 2
+    depth = p.bit_length() - 1
+    offs = [0]
+    for lvl in range(depth):
+        offs.append(offs[-1] + (p >> lvl))
+    j = np.arange(n)
+    br = np.zeros((b, n, depth, 32), np.uint8)
+    for d in range(depth):
+        br[:, :, d] = forest_np[:, offs[d] + ((j >> d) ^ 1)]
+    return br.reshape(b * n, depth, 32), np.tile(j, b).astype(np.int64)
+
+
+def tamper_per_warp(np, leaves, br, idx):
+    """In every group of 32 branches (a warp's, in the kernel), flip a
+    byte of one leaf, of one sibling and a low bit of one index, in
+    place; returns the expected (B,) verdicts (an index flip changes
+    nothing at depth 0)."""
+    rows, depth = br.shape[0], br.shape[1]
+    expect = np.ones(rows, dtype=bool)
+    for w in range(0, rows, 32):
+        leaf, sib, ix = w + 1, w + 7, w + 13
+        if leaf < rows and leaves.shape[1]:
+            leaves[leaf, (w // 32) % leaves.shape[1]] ^= 0x20
+            expect[leaf] = False
+        if sib < rows and depth:
+            br[sib, (w // 32) % depth, 31 - (w // 32) % 32] ^= 0x04
+            expect[sib] = False
+        if ix < rows:
+            idx[ix] ^= 1 << ((w // 32) % depth if depth else 5)
+            expect[ix] &= depth == 0
+    return expect
+
+
 def payload_len(n: int, batch: int) -> int:
     """Bytes of one proposer's serialized TPKE ciphertext in the epoch:
     c1 (32) + length (4) + the serialized tx list + tag (32)."""
@@ -247,14 +307,16 @@ def payload_len(n: int, batch: int) -> int:
     return 32 + 4 + len(serialize_txs([bytes(TX_BYTES)] * per_node)) + 32
 
 
-def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_rate=None) -> dict:
+def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_rate: float) -> dict:
     """Every entry point at one roster's epoch shapes, on ``dev``, held
     against its plain version; returns {entry point: record}.  Past 256
     validators the codec is GF(2^16) (K11 ``rs16_*`` on uint16 symbols,
-    no fused decode-recheck), first decoding by the identity (the bit
-    order of its tensor-core fragments), with a second bound on the
-    binary tensor cores at ``b1_rate`` (``tc_bound_ms``); below, GF(2^8)
-    (K1-K3).  K11 and the forest must make one launch a call."""
+    no fused decode-recheck); below, GF(2^8) (K1-K3).  Either codec first
+    decodes by the identity (the bit order of its tensor-core fragments)
+    and has a second bound on the binary tensor cores at ``b1_rate``
+    (``tc_bound_ms``, printed with its bit products also when untimed).
+    The codec's applies, the forest and the branch verify must make one
+    launch a call, K3 three."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
@@ -291,8 +353,7 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_ra
     data = put(data_np.view(np.uint16) if wide else data_np)
     a_np = field.systematic_rs_matrix(n, k)
     enc = put(a_np)
-    if wide:
-        rs16.mark_systematic(enc, a_np)
+    rs.mark_systematic(enc, a_np)
     full_s = encode(enc, data)  # (b, n, S) symbols
     full = full_s.view(torch.uint8) if wide else full_s  # (b, n, L) bytes
     shared_idx = sorted(rng.choice(n, k, replace=False).tolist())
@@ -308,17 +369,9 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_ra
     leaf_rows = full.reshape(b * n, L)
     forest = sh.build_forest(full)
     roots = forest[:, -1]
-    # the N^2 ECHO branches, as protocol/spmd.py assembles them
-    forest_np = forest.cpu().numpy()
-    offs = [0]
-    for lvl in range(depth):
-        offs.append(offs[-1] + (p >> lvl))
-    j = np.arange(n)
-    br = np.stack(
-        [forest_np[:, offs[d] + ((j >> d) ^ 1)] for d in range(depth)], 2
-    ).reshape(b * n, depth, 32)
+    # the N^2 ECHO branches
+    br, idx_np = tree_branches(np, forest.cpu().numpy(), n)
     leaves_np = leaf_rows.cpu().numpy().copy()
-    idx_np = np.tile(j, b).astype(np.int64)
     expect = np.ones(b * n, dtype=bool)
     # tampered leaf, tampered sibling, wrong index: must verify False
     leaves_np[1, 0] ^= 0x01
@@ -330,65 +383,71 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_ra
 
     L1 = L + 1
     out = {}
-    if wide:
-        # the bit order of K11's fragments: a decode by the identity
-        before = sum(COUNTS.kernels.values())
-        got = decode(put(np.eye(k, dtype=np.uint16)), data)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        rec = {"equal": torch.equal(got.to(torch.int32), data.to(torch.int32)),
-               "max_abs_err": 0.0, "launches_per_call": sum(COUNTS.kernels.values()) - before}
-        print(f"kernel rs16_identity n={n} f={f} B={b} k={k} L={L}: equal={rec['equal']} "
-              f"launches_per_call={rec['launches_per_call']}", flush=True)
-        out["rs16_identity"] = rec
+    # the bit order of the codec's tensor-core fragments: a decode by the
+    # identity
+    before = sum(COUNTS.kernels.values())
+    got = decode(put(np.eye(k, dtype=a_np.dtype)), data)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rec = {"equal": torch.equal(got.to(torch.int32), data.to(torch.int32)),
+           "max_abs_err": 0.0, "launches_per_call": sum(COUNTS.kernels.values()) - before}
+    print(f"kernel {prefix}identity n={n} f={f} B={b} k={k} L={L}: equal={rec['equal']} "
+          f"launches_per_call={rec['launches_per_call']}", flush=True)
+    out[prefix + "identity"] = rec
+    # (INT32-pipe, issued) instructions of a forest of b trees
+    forest_ops = sha_ops(b * n * blocks(L1), b * (p - 1))
     cases = {
         prefix + "encode": (
             lambda: encode(enc, data),
             lambda: apply_plain(enc, data),
-            b * k * L + sym * n * k + b * n * L, mac_ops * b * (n - k) * k * S,
+            b * k * L + sym * n * k + b * n * L, (mac_ops * b * (n - k) * k * S, 0),
         ),
         prefix + "decode": (
             lambda: decode(dec, shards),
             lambda: apply_plain(dec, shards),
-            2 * b * k * L + sym * k * k, mac_ops * b * k * k * S,
+            2 * b * k * L + sym * k * k, (mac_ops * b * k * k * S, 0),
         ),
         prefix + "decode_per_instance": (
             lambda: decode(decs, shards_pi),
             lambda: apply_plain(decs, shards_pi),
-            2 * b * k * L + sym * b * k * k, mac_ops * b * k * k * S,
+            2 * b * k * L + sym * b * k * k, (mac_ops * b * k * k * S, 0),
         ),
         "sha256_rows": (
             lambda: sh.sha256_rows(leaf_rows, 0),
             lambda: sh.sha256_rows_plain(leaf_rows, 0),
-            b * n * (L + 32), b * n * blocks(L1) * SHA_OPS_PER_BLOCK,
+            b * n * (L + 32), sha_ops(b * n * blocks(L1), 0),
         ),
         "merkle_forest": (
             lambda: sh.build_forest(full),
             lambda: sh.build_forest_plain(full),
-            b * n * L + b * (2 * p - 1) * 32,
-            b * (n * blocks(L1) * SHA_OPS_PER_BLOCK + (p - 1) * SHA_OPS_PER_NODE),
+            b * n * L + b * (2 * p - 1) * 32, forest_ops,
         ),
         "merkle_verify": (
             lambda: sh.verify_branches(roots_rep, leaves_v, br_v, idx_v),
             lambda: sh.verify_branches_plain(roots_rep, leaves_v, br_v, idx_v),
             b * n * (32 + L + depth * 32 + 8 + 1),
-            b * n * (blocks(L1) * SHA_OPS_PER_BLOCK + depth * SHA_OPS_PER_NODE),
+            sha_ops(b * n * blocks(L1), b * n * depth),
         ),
     }
     if not wide:
+        table_ops = 2 * b * k * k * L + 2 * b * (n - k) * k * L
         cases["decode_recheck"] = (
             lambda: rs.decode_recheck(dec, enc, shards),
             lambda: rs.decode_recheck_plain(dec, enc, shards),
             b * k * L + k * k + n * k + b * k * L + b * 32,
-            2 * b * k * k * L + 2 * b * (n - k) * k * L
-            + b * (n * blocks(L1) * SHA_OPS_PER_BLOCK + (p - 1) * SHA_OPS_PER_NODE),
+            tuple(table_ops + o for o in forest_ops),
         )
-    # bit products of K11's lifted GF(2) product
+    # bit products of the codec's lifted GF(2) products (K3: its decode and
+    # parity re-encode, its forest as int32 operations beside them)
+    e = 16 if wide else 8
     tc_bits = {
-        prefix + "encode": gf2_bit_products(n - k, k, b * S),
-        prefix + "decode": gf2_bit_products(k, k, b * S),
-        prefix + "decode_per_instance": gf2_bit_products(k, k, b * S),
-    } if wide else {}
+        prefix + "encode": (gf2_bit_products(n - k, k, b * S, e), (0, 0)),
+        prefix + "decode": (gf2_bit_products(k, k, b * S, e), (0, 0)),
+        prefix + "decode_per_instance": (gf2_bit_products(k, k, b * S, e), (0, 0)),
+    }
+    if not wide:
+        tc_bits["decode_recheck"] = (
+            gf2_bit_products(k, k, b * S, e) + gf2_bit_products(n - k, k, b * S, e), forest_ops)
     for name, (kern, plain, nbytes, ops) in cases.items():
         before = sum(COUNTS.kernels.values())
         got = kern()
@@ -408,8 +467,8 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_ra
         else:
             err = float("inf")
         rec = {"equal": equal, "max_abs_err": float(err), "launches_per_call": per_call}
-        if dev.type == "cuda" and (name in tc_bits or name == "merkle_forest"):
-            rec["equal"] &= per_call == 1  # one launch a call
+        if dev.type == "cuda":  # one launch a call; K3: decode, re-encode, forest
+            rec["equal"] &= per_call == (3 if name == "decode_recheck" else 1)
         # independent checks beyond the plain version
         if name.endswith(("_decode", "_decode_per_instance")):
             rec["equal"] &= torch.equal(got_t[0], data.to(torch.int32))
@@ -431,49 +490,64 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_ra
             rec["equal"] &= bool(np.array_equal(got.cpu().numpy(), expect))
         elif name == "decode_recheck":
             rec["equal"] &= torch.equal(got[0], data) and torch.equal(got[1], roots)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, *ops)
+        if name in tc_bits:
+            bits, int_ops = tc_bits[name]
+            rec["int_bound_ms"] = rec["bound_ms"]
+            rec["tc_bound_ms"], rec["tc_bound_by"] = tc_bound(nbytes, bits, b1_rate, *int_ops)
+            rec["bit_products"] = bits
         if timed:
             rec["kernel_ms"] = time_ms(torch, kern, 20)
             rec["plain_ms"] = time_ms(torch, plain, 3)
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
-            if name in tc_bits:
-                rec["int_bound_ms"] = rec["bound_ms"]
-                rec["tc_bound_ms"], rec["tc_bound_by"] = tc_bound(nbytes, tc_bits[name], b1_rate)
-                rec["bit_products"] = tc_bits[name]
         line = (
             f"kernel {name} n={n} f={f} B={b} k={k} L={L}: "
             f"equal={rec['equal']} launches_per_call={per_call}"
         )
         if timed:
+            line += f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']}"
+        line += f" bound_ms={rec['bound_ms']} ({rec['bound_by']})"
+        if name in tc_bits:
             line += (
-                f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']}"
-                f" bound_ms={rec['bound_ms']} ({rec['bound_by']})"
+                f" tc_bound_ms={rec['tc_bound_ms']} ({rec['tc_bound_by']}, "
+                f"{rec['bit_products']} bit products at {b1_rate} a second)"
             )
-            if name in tc_bits:
-                line += (
-                    f" tc_bound_ms={rec['tc_bound_ms']} ({rec['tc_bound_by']}, "
-                    f"{rec['bit_products']} bit products at {b1_rate} a second)"
-                )
         print(line, flush=True)
         out[name] = rec
     return out
 
 
 def edge_phase(torch, dev, rng) -> dict:
-    """Untimed parity on the paths of K11 and K5 that no epoch's shapes
-    take: K11 with k past one lifted span of 176 symbols (N=640/f=213,
-    k=214: two spans, lifted again for every tile), with an odd symbol
-    count (no paired loads or stores) and with x one symbol off a 4-byte
-    boundary (no paired loads at an even count); the forest with rows
-    staged by byte loads (a length, or a start, off 16 bytes) and with
-    rows past the 64 KB staging budget, hashed from global memory.
-    Encode, shared and per-instance decode must equal their plain
-    versions and give back the data; each forest its plain version and
-    ``hashlib_root``; each call one launch.  Returns {case: record}."""
+    """Untimed parity on the paths of the codecs, the forest and the
+    branch verify that no epoch's shapes take.
+
+    - GF(2^8) (K1/K2, ``GF256_EDGES``): k on both sides of the 32-byte
+      k256 step and far past it (1, 31, 32, 33, 44, 200), an odd parity
+      row count, odd and tile-ragged L, x one byte off a 4-byte boundary;
+    - K11: k past one lifted span of 176 symbols (N=640/f=213, k=214: two
+      spans, lifted again for every tile), with an odd symbol count (no
+      paired loads or stores) and with x one symbol off a 4-byte boundary
+      (no paired loads at an even count);
+    - the forest with rows staged by byte loads (a length, or a start, off
+      16 bytes) and with rows past the 64 KB staging budget, hashed from
+      global memory;
+    - K6 (``VERIFY_EDGES``): one-leaf trees (D=0), 1,001-byte leaves one
+      byte off (byte-load staging) with siblings and roots off 16 bytes,
+      the >64 KB leaves of the forest case (the global path), a ragged B
+      (N=100: 10,000 branches) and indices with bits above 31 set (the
+      kernel reads their low 32 bits); every case with one tampered leaf,
+      sibling and index in each warp's 32 branches.
+
+    Encode, shared and per-instance decode (a distinct erasure pattern
+    per instance) must equal their plain versions and give back the data;
+    each forest its plain version and ``hashlib_root``; each verify its
+    plain version and the tampering's verdicts; each call one launch.
+    Returns {case: record}."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
-    from cleisthenes_tpu_torch.ops import gf65536 as gf
+    from cleisthenes_tpu_torch.ops import gf256, gf65536 as gf
     from cleisthenes_tpu_torch.ops import rs16_cuda as rs16
+    from cleisthenes_tpu_torch.ops import rs_cuda as rs
     from cleisthenes_tpu_torch.ops import sha256_cuda as sh
 
     def put(a, offset=False):
@@ -492,7 +566,7 @@ def edge_phase(torch, dev, rng) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
         per_call = sum(COUNTS.kernels.values()) - before
-        want = plain()
+        want = plain().to(got.device)
         equal = (torch.equal(got.to(torch.int32), want.to(torch.int32))
                  and (per_call == 1 or dev.type == "cpu") and check(got))
         out[name] = {"equal": equal, "launches_per_call": per_call}
@@ -500,41 +574,90 @@ def edge_phase(torch, dev, rng) -> dict:
               flush=True)
         return got
 
+    def codec(tag, field, enc_fn, dec_fn, plain_fn, x_np, n, k, off):
+        a = field.systematic_rs_matrix(n, k)
+        enc = put(a)
+        rs.mark_systematic(enc, a)
+        b = x_np.shape[0]
+        x = put(x_np, off)
+        x32 = torch.from_numpy(x_np.astype(np.int32)).to(dev)
+        full = held(f"{enc_fn.__name__}@{tag}", lambda: enc_fn(enc, x),
+                    lambda: plain_fn(enc, x),
+                    lambda got: torch.equal(got.to(torch.int32)[:, :k], x32))
+        full_np = full.cpu().numpy()
+        idx = sorted(rng.choice(n, k, replace=False).tolist())
+        dec, shards = put(field.gf_mat_inv(a[idx])), put(full_np[:, idx], off)
+        held(f"{dec_fn.__name__}@{tag}", lambda: dec_fn(dec, shards),
+             lambda: plain_fn(dec, shards),
+             lambda got: torch.equal(got.to(torch.int32), x32))
+        pats = [sorted(rng.choice(n, k, replace=False).tolist()) for _ in range(b)]
+        decs = put(np.stack([field.gf_mat_inv(a[q]) for q in pats]))
+        shards_pi = put(np.stack([full_np[i, q] for i, q in enumerate(pats)]), off)
+        held(f"{dec_fn.__name__}_per_instance@{tag}", lambda: dec_fn(decs, shards_pi),
+             lambda: plain_fn(decs, shards_pi),
+             lambda got: torch.equal(got.to(torch.int32), x32))
+
+    for tag, n, k, b, L, off in GF256_EDGES:
+        codec(tag, gf256, rs.rs_encode, rs.rs_decode, rs.gf256_apply_plain,
+              rng.integers(0, 256, (b, k, L), dtype=np.uint8), n, k, off)
     for tag, n, k, b, S, off in (("two_spans", 640, 214, 3, 40, False),
                                  ("two_spans_odd_S", 640, 214, 2, 37, False),
                                  ("odd_S", 300, 102, 3, 33, False),
                                  ("x_offset", 512, 172, 2, 64, True)):
-        a = gf.systematic_rs_matrix(n, k)
-        enc = put(a)
-        rs16.mark_systematic(enc, a)
-        x_np = rng.integers(0, gf.ORDER, (b, k, S)).astype(np.uint16)
-        x = put(x_np, off)
-        x32 = torch.from_numpy(x_np.astype(np.int32)).to(dev)
-        full = held(f"rs16_encode@{tag}", lambda: rs16.rs16_encode(enc, x),
-                    lambda: rs16.gf65536_apply_plain(enc, x),
-                    lambda got: torch.equal(got.to(torch.int32)[:, :k], x32))
-        full_np = full.cpu().numpy()
-        idx = sorted(rng.choice(n, k, replace=False).tolist())
-        dec, shards = put(gf.gf_mat_inv(a[idx])), put(full_np[:, idx], off)
-        held(f"rs16_decode@{tag}", lambda: rs16.rs16_decode(dec, shards),
-             lambda: rs16.gf65536_apply_plain(dec, shards),
-             lambda got: torch.equal(got.to(torch.int32), x32))
-        pats = [sorted(rng.choice(n, k, replace=False).tolist()) for _ in range(b)]
-        decs = put(np.stack([gf.gf_mat_inv(a[q]) for q in pats]))
-        shards_pi = put(np.stack([full_np[i, q] for i, q in enumerate(pats)]), off)
-        held(f"rs16_decode_per_instance@{tag}", lambda: rs16.rs16_decode(decs, shards_pi),
-             lambda: rs16.gf65536_apply_plain(decs, shards_pi),
-             lambda got: torch.equal(got.to(torch.int32), x32))
+        codec(tag, gf, rs16.rs16_encode, rs16.rs16_decode, rs16.gf65536_apply_plain,
+              rng.integers(0, gf.ORDER, (b, k, S)).astype(np.uint16), n, k, off)
+    trees = {}
     for tag, b, n, L, off in (("byte_loads", 3, 7, 1001, False),
                               ("start_offset", 2, 9, 1024, True),
                               ("global_rows", 2, 3, 65601, False)):
         shards_np = rng.integers(0, 256, (b, n, L), dtype=np.uint8)
         shards = put(shards_np, off)
-        held(f"merkle_forest@{tag}", lambda: sh.build_forest(shards),
-             lambda: sh.build_forest_plain(shards),
-             lambda got: all(got[i, -1].cpu().numpy().tobytes() == hashlib_root(shards_np[i])
-                             for i in range(b)))
+        trees[tag] = shards_np, held(
+            f"merkle_forest@{tag}", lambda: sh.build_forest(shards),
+            lambda: sh.build_forest_plain(shards),
+            lambda got: all(got[i, -1].cpu().numpy().tobytes() == hashlib_root(shards_np[i])
+                            for i in range(b)))
+    for tag, b, n, L, off, high in VERIFY_EDGES:
+        if tag == "global_leaves":  # the forest case's trees of 65,601-byte rows
+            shards_np, forest = trees["global_rows"]
+        else:
+            shards_np = rng.integers(0, 256, (b, n, L), dtype=np.uint8)
+            forest = sh.build_forest(put(shards_np))
+        forest_np = forest.cpu().numpy()
+        br, idx = tree_branches(np, forest_np, n)
+        leaves_np = shards_np.reshape(b * n, -1).copy()
+        if high:
+            idx |= (np.arange(b * n, dtype=np.int64) % 0x7FFFFFFF + 1) << 32
+        expect = tamper_per_warp(np, leaves_np, br, idx)
+        args = (put(np.repeat(forest_np[:, -1], n, 0), off), put(leaves_np, off),
+                put(br, off), put(idx))
+        # the plain version of the >64 KB leaves on the host: 1,026 blocks
+        # of tiny tensor ops run faster there than as launches on the card
+        plain_args = tuple(t.cpu() for t in args) if tag == "global_leaves" else args
+        held(f"merkle_verify@{tag}", lambda: sh.verify_branches(*args),
+             lambda: sh.verify_branches_plain(*plain_args),
+             lambda got: bool(np.array_equal(got.cpu().numpy(), expect)))
     return out
+
+
+# GF(2^8) edge cases (tag, n, k, instances, L, x off a 4-byte boundary)
+GF256_EDGES = (
+    ("k1", 3, 1, 4, 37, False),
+    ("k31", 93, 31, 3, 300, False),
+    ("k32_x_offset", 96, 32, 3, 128, True),
+    ("k33_odd_parity", 100, 33, 3, 1001, False),
+    ("k44_odd_L", 128, 44, 5, 127, True),
+    ("k200", 256, 200, 2, 64, False),
+)
+# K6 edge cases (tag, trees, leaves a tree, L, inputs off alignment, index
+# bits above 31)
+VERIFY_EDGES = (
+    ("depth0", 37, 1, 45, False, False),
+    ("odd_L_offset", 9, 8, 1001, True, False),
+    ("global_leaves", 2, 3, 65601, False, False),
+    ("ragged_n100", 100, 100, 119, False, False),
+    ("high_index_bits", 4, 64, 128, False, True),
+)
 
 
 def _digits(np, exps, w: int):
@@ -1325,8 +1448,8 @@ def main() -> int:
     rng = np.random.default_rng(2026)
     rnd = random.Random(2026)
     phases = {
-        "n128": kernel_phase(torch, N, F, BATCH, dev, True, rng),
-        "n100": kernel_phase(torch, 100, 33, BATCH, dev, False, rng),
+        "n128": kernel_phase(torch, N, F, BATCH, dev, True, rng, b1_rate),
+        "n100": kernel_phase(torch, 100, 33, BATCH, dev, False, rng, b1_rate),
         "modexp": modexp_phase(torch, P_DEFAULT, dev, True, rnd),
         "modexp_p2": modexp_phase(torch, P2, dev, False, rnd),
         "n512": kernel_phase(torch, 512, 170, 4096, dev, True, rng, b1_rate),
@@ -1377,12 +1500,12 @@ def main() -> int:
     counts["gf65536_apply"] = launches_512["kernels"].get("gf65536_apply", 0)
     for name in ("wide_pow_fused", "wide_dual_pow_fused"):
         counts[name] = launches_384["kernels"].get(name, 0)
-    records = dict(phases["n128"])
+    records = {name: dict(rec) for name, rec in phases["n128"].items()}
     records.update(phases["modexp"])
     records["gf65536_apply"] = dict(phases["n512"]["rs16_encode"])
-    k11 = records["gf65536_apply"]
-    if k11["tc_bound_ms"] < k11["int_bound_ms"]:
-        k11["bound_ms"], k11["bound_by"] = k11["tc_bound_ms"], k11["tc_bound_by"]
+    for rec in records.values():  # the codecs' bound: the lesser of their two
+        if "tc_bound_ms" in rec and rec["tc_bound_ms"] < rec["int_bound_ms"]:
+            rec["bound_ms"], rec["bound_by"] = rec["tc_bound_ms"], rec["tc_bound_by"]
     for name in ("wide_pow_fused", "wide_dual_pow_fused"):
         records[name] = phases["wide"][f"{name}@384_epoch"]
     kernels = []
@@ -1404,11 +1527,11 @@ def main() -> int:
         if name in OFF_PATH:
             kernels[-1]["kernel_phase_launches"] = rec["launches_per_call"]
             kernels[-1]["off_path"] = OFF_PATH[name]
-        if name == "gf65536_apply":
+        if "tc_bound_ms" in rec:
             kernels[-1]["bounds"] = {"int_ops_ms": rec["int_bound_ms"],
                                      "tensor_core_ms": rec["tc_bound_ms"]}
-        elif name == "merkle_forest":
-            n512 = phases["n512"]["merkle_forest"]
+        elif name in ("merkle_forest", "merkle_verify"):
+            n512 = phases["n512"][name]
             kernels[-1]["bounds"] = {"n128_ms": rec["bound_ms"], "n512_ms": n512["bound_ms"]}
             kernels[-1]["ms_n512"] = n512["kernel_ms"]
     missing = [k_["name"] for k_ in kernels if k_["launches"] <= 0 and k_["name"] not in OFF_PATH]

@@ -12,8 +12,9 @@ alone builds everything.  A failed build, a missing ``nvcc`` or a
 failed launch raises.
 
 Each C entry point launches on the caller's stream and returns
-``cudaGetLastError()``; ``check()`` turns a nonzero code into an
-exception.  ``COUNTS`` tallies every launch by kernel (``gf256_apply``,
+``cudaGetLastError()``; ``launch()`` makes one call on a tensor's card
+and current stream, turns a nonzero code into an exception and counts
+it.  ``COUNTS`` tallies every launch by kernel (``gf256_apply``,
 ``gf65536_apply``, ``sha256_rows``, ``merkle_forest``, ``merkle_verify``,
 ``mont_mul``,
 ``pow_fused``, ``dual_pow_fused``, ``comb_table``, ``comb_apply``,
@@ -55,7 +56,7 @@ _I = ctypes.c_int
 # as c_void_p (a bare int would be cut to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gf256": {
-        "gf256_apply": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "gf256_apply": [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "gf65536": {
         "gf65536_apply": [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -184,11 +185,27 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def stream_of(tensor) -> int:
-    """The raw handle of PyTorch's current stream on the tensor's card."""
+def launch(lib: str, fn: str, sites: Tuple[str, ...], ref, *args) -> None:
+    """One launch: C entry point ``fn`` of ``csrc/<lib>.cu`` with ``args``
+    and the raw handle of PyTorch's current stream on ``ref``'s card,
+    that card made current for the call if it is not; raises on a
+    nonzero code and counts the launch under ``fn`` and ``sites``.  The
+    raw stream handle and the device index come from torch's C bindings
+    (``torch.cuda.current_stream`` builds a Python stream object a call,
+    and a device guard swaps devices twice), which keeps a small call's
+    host time down."""
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    dev = ref.get_device()
+    call = getattr(load(lib), fn)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():
+        rc = call(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = call(*args, stream)
+    check(rc, fn)
+    COUNTS.add(fn, sites)
 
 
 __all__ = [
@@ -197,7 +214,7 @@ __all__ = [
     "LaunchCounts",
     "build_all",
     "check",
+    "launch",
     "load",
     "nvcc_path",
-    "stream_of",
 ]

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;                    // 8 warps
@@ -271,6 +273,17 @@ gf65536_gf2_kernel(const uint16_t* __restrict__ mat, long long mat_bstride,
   }
 }
 
+// What a launch needs to know of the current device, set up once a device under
+// a lock, since a process may drive several cards: its SM count and the
+// kernel's shared-memory opt-in.
+constexpr int kMaxDevices = 64;
+struct DeviceState {
+  bool ready = false;
+  int sms = 0;
+};
+std::mutex g_device_mu;
+DeviceState g_device[kMaxDevices];
+
 }  // namespace
 
 // out = M (*) x over GF(2^16) for x (B, k, S) uint16 symbols and M (m, k)
@@ -285,20 +298,23 @@ extern "C" int gf65536_apply(const void* mat, long long mat_bstride,
   if (B < 1 || m < 0 || k < 1 || S < 1 || (row0 != 0 && row0 != k) ||
       (m == 0 && row0 == 0))
     return (int)cudaErrorInvalidValue;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gf65536_gf2_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)kSmemBytes);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return (int)err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(g_device_mu);
+    DeviceState& d = g_device[dev];
+    if (!d.ready) {
+      err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(gf65536_gf2_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kSmemBytes);
+      if (err != cudaSuccess) return (int)err;
+      d.ready = true;
     }
+    sms = d.sms;
   }
   const long long row_tiles = m > 0 ? (m + kRows - 1) / kRows : 1;
   const long long col_tiles = (long long)B * ((S + kCols - 1) / kCols);

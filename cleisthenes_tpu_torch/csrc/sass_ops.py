@@ -1,18 +1,32 @@
 """Count the instructions sm_90a issues for the kernels' unit of work.
 
 The bounds that ``chip_smoke.py`` reports for the SHA-256 and modexp
-kernels are operations over the card's INT32 rate, so they rest on a
-count of the 32-bit operations in one SHA-256 compression and in one
+kernels are operations over the card's rates, so they rest on a count
+of the 32-bit operations in one SHA-256 compression and in one
 Montgomery product.  This script takes those counts from the machine
 code: it compiles probe kernels against the sources with the build's
 flags, disassembles them with ``cuobjdump -sass`` and prints, per
 kernel, the instructions by opcode and the integer ALU ones
-(everything but loads, stores, moves and control flow).
+(everything but loads, stores, moves and control flow).  For SHA-256 it
+also splits them by pipe (``sha_ops``: the ones that issue on the INT32
+pipe, ``INT32_PIPE``, and all of them), since nvcc puts part of the
+adds on the FMA pipe as IMADs: ``chip_smoke.py`` bounds the SHA kernels
+by the larger of the INT32-pipe count over that pipe's rate and the
+whole count over the issue rate (``SHA_BLOCK_OPS``, ``SHA_NODE_OPS``);
+the script exits 1 when a probe now counts fewer than they record.
 
 - ``probe_compress``: one ``sha256_compress`` on state and words read
   from memory, so nothing folds (``csrc/sha256.cu``);
 - ``probe_node``: one ``sha256_node`` (the two compressions of a
   65-byte Merkle node message, whose padding words are constants);
+- ``probe_leaf``: one ``leaf_digest`` (a leaf from its staged words or,
+  past the staging budget, from global memory), the leaf part of
+  ``merkle_verify_kernel``.  The script prints ``merkle_verify_nodes``:
+  the kernel's ALU instructions less the leaf probe's, over the node
+  probe's, which must round to 1: the level loop holds one node's code,
+  its left/right order chosen by selects; the script exits 1 if a second
+  copy of the node appears (a branch on the index bit that nvcc did not
+  if-convert; measured at 2.1 with the branch put back);
 - ``probe_team_prod_8``: one team product of K8's ``DualPlan``
   (``csrc/mont_team.cuh``, 8 x 32-bit CIOS with its conditional
   subtract; every kernel of ``csrc/modexp.cu`` runs it, with one lane
@@ -40,8 +54,9 @@ kernel, the instructions by opcode and the integer ALU ones
   records, so that the bounds are brought down with it.
 
 It also prints ``ptxas -v``'s registers, shared memory and spill bytes
-for every kernel of ``csrc/gf65536.cu``, ``csrc/modexp.cu`` and
-``csrc/modexp_wide.cu``, and for the last two a ``ptxas_modexp`` and a
+for every kernel of ``csrc/gf256.cu``, ``csrc/gf65536.cu``,
+``csrc/sha256.cu``, ``csrc/modexp.cu`` and ``csrc/modexp_wide.cu``, and
+for the last two a ``ptxas_modexp`` and a
 ``ptxas_wide`` summary: registers, stack and spill bytes per kernel (and
 family).
 
@@ -86,6 +101,16 @@ extern "C" __global__ void probe_node(const uint32_t* __restrict__ in,
   sha256_node(l, r, st);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = st[i];
+}
+
+extern "C" __global__ void probe_leaf(const uint32_t* __restrict__ rows,
+                                      const uint8_t* __restrict__ global,
+                                      long long L, int pitch_w,
+                                      uint32_t* __restrict__ out) {
+  uint32_t st[8];
+  leaf_digest(rows, threadIdx.x, pitch_w, L, global + threadIdx.x * L, st);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[8 * threadIdx.x + i] = st[i];
 }
 """
 
@@ -157,6 +182,19 @@ _NOT_ALU = {
 } | {"SHFL", "VOTE", "REDUX", "WARPSYNC", "ENDCOLLECTIVE"}
 # warp exchanges (shuffles, votes, reductions), counted on their own
 _WARP = {"SHFL", "VOTE", "REDUX"}
+# opcodes that issue on sm_90a's INT32 pipe (16 lanes an SM sub-partition).
+# IMAD and IMUL issue on the FMA pipe, the uniform datapath's U* opcodes on
+# their own; an opcode not listed (VIADD among them) counts only as issued.
+INT32_PIPE = {"IADD3", "IABS", "IMNMX", "ISETP", "LEA", "LOP3", "PLOP3", "PRMT", "SEL",
+              "SHF", "SGXT", "BMSK"}
+# SHA-256's 32-bit instructions as (INT32 pipe, issued): one compression of
+# words that do not fold (``probe_compress``: 672 SHF, 352 LOP3 and 241
+# IADD3 on the INT32 pipe, 118 IMAD on the FMA pipe) and the two
+# compressions of a 65-byte Merkle node, whose second block is mostly
+# constant padding (``probe_node``: 1,284 SHF, 683 LOP3, 453 IADD3 and one
+# LEA; 228 IMAD, 26 VIADD)
+SHA_BLOCK_OPS = (1265, 1383)
+SHA_NODE_OPS = (2421, 2675)
 # 32-bit instructions of one wide Montgomery product per family word count,
 # as counted in the SASS of csrc/modexp_wide.cu's first design (one thread
 # per exponentiation, its CIOS product not shared across lanes) ...
@@ -206,6 +244,24 @@ def loop_alu(sass: str, fn: str):
     return total, 0
 
 
+def verify_nodes(alu: Dict[str, int]) -> float:
+    """Copies of the Merkle node's code in ``merkle_verify_kernel`` (the
+    probes' source includes csrc/sha256.cu, so their cubin holds its
+    kernels, by mangled name): the kernel's ALU instructions less the
+    leaf probe's, over the node probe's.  About 1.1 for one node (the
+    level loop's selects, loads and index shifts add the tenth); a branch
+    on the index bit that nvcc did not if-convert makes it about 2.1."""
+    kern = next(fn for fn in alu if "merkle_verify_kernel" in fn)
+    return (alu[kern] - alu["probe_leaf"]) / alu["probe_node"]
+
+
+def pipe_split(hist: Dict[str, int]):
+    """(INT32-pipe instructions, ALU instructions issued) of an opcode
+    histogram from ``count``."""
+    return (sum(n for op, n in hist.items() if op in INT32_PIPE),
+            sum(n for op, n in hist.items() if op not in _NOT_ALU))
+
+
 def count(sass: str) -> Dict[str, Dict[str, int]]:
     """{function: {opcode: count}} from ``cuobjdump -sass`` text; an
     opcode keeps its first suffix only for ``IMAD.MOV``."""
@@ -240,7 +296,7 @@ def main() -> int:
             [_cuobjdump(), "-sass", str(cubin)], check=True, capture_output=True, text=True
         ).stdout
     (work / "probe.sass").write_text(sass)
-    for name in ("gf65536", "modexp", "modexp_wide"):
+    for name in ("gf256", "gf65536", "sha256", "modexp", "modexp_wide"):
         log = subprocess.run(
             [nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
              str(work / f"{name}.cubin"), str(_CSRC / f"{name}.cu")],
@@ -261,6 +317,19 @@ def main() -> int:
         print(f"{fn}: alu={alu} all={sum(hist.values())} "
               + json.dumps(dict(sorted(hist.items(), key=lambda kv: -kv[1]))))
     print("sass_ops " + json.dumps({fn: r["alu"] for fn, r in result.items()}))
+    nodes = verify_nodes({fn: r["alu"] for fn, r in result.items()})
+    print(f"merkle_verify_nodes {nodes}")
+    if round(nodes) != 1:
+        print("sass_ops: merkle_verify_kernel does not hold exactly one node's code")
+        return 1
+    sha = {"block": pipe_split(result["probe_compress"]["by_opcode"]),
+           "node": pipe_split(result["probe_node"]["by_opcode"])}
+    print("sha_ops " + json.dumps({
+        **{k: {"int32_pipe": v[0], "issued": v[1]} for k, v in sha.items()},
+        "SHA_BLOCK_OPS": SHA_BLOCK_OPS, "SHA_NODE_OPS": SHA_NODE_OPS}))
+    if any(m < r for m, r in zip(sha["block"] + sha["node"], SHA_BLOCK_OPS + SHA_NODE_OPS)):
+        print("sass_ops: SHA_BLOCK_OPS or SHA_NODE_OPS is above the measured count")
+        return 1
     team = {}
     for nw, plan in wide_plans().items():
         fn = f"probe_team_prod_{nw}"

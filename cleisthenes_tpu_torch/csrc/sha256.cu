@@ -4,7 +4,9 @@
 //   K4 sha256_batch (:127)     sha256_rows: one digest per fixed-length row
 //   K5 build_forest (:157)     merkle_forest: one launch a forest, one block
 //                              a tree
-//   K6 verify_branches (:206)  merkle_verify: one thread per branch proof
+//   K6 verify_branches (:206)  merkle_verify: a thread a branch proof, its
+//                              block's leaf rows staged in shared memory, no
+//                              divergent branch
 // and the forest half of K3 _decode_recheck_kernel (rs_xla.py:80).
 //
 // Merkle convention (ops/merkle.py): leaf = SHA256(0x00 || shard), node =
@@ -14,37 +16,54 @@
 // Bound on the H100: SHA-256 is integer work, 1,383 32-bit instructions per
 // 64-byte compression as sm_90a issues them (14 per round: 6 SHF for the
 // rotations, one LOP3 each for the two Sigmas' 3-way XORs, Ch and Maj, and
-// 4 adds as IADD3; 10 per schedule word; counted in the SASS by
-// csrc/sass_ops.py) and 2,675 for a 65-byte Merkle node, against a few
-// bytes of input per compression; so every kernel here is bound by
-// operations at the 16.7 T int32 ops/s of the SM's INT32 lanes.  At the
-// N=128 epoch the forest is 16,384 leaves of 129 bytes (3 compressions)
-// plus 16,256 nodes, the verify 16,384 branches of 3 compressions and 7
-// nodes: 0.49 G instructions, ~29 us of int work at peak, tiny next to
-// launch costs; at N=512 the forest is 262,144 leaves and 261,632 nodes,
-// 1.8 G instructions, 0.107 ms.  The design gives each message its own thread
-// so the 64 rounds run in registers with no cross-thread traffic: the
-// 16-word schedule is a rolling window whose indices unroll to registers,
-// the padded block is assembled from the row bytes on the fly (no host
-// concatenation of the domain byte, no padded copy), and a verify thread
-// keeps its running digest in registers through all D levels, building each
-// 65-byte node message from the two digests with word shifts.
+// 4 adds; 10 per schedule word; counted in the SASS by csrc/sass_ops.py)
+// and 2,675 for a 65-byte Merkle node, against a few bytes of input per
+// compression.  nvcc issues part of the adds as IMADs on the FMA pipe;
+// the rest, 1,265 a compression and 2,421 a node, go to the INT32 pipe,
+// and at its 16.7 T ops/s they bound every kernel here (all issued ones
+// at the 33.4 T a second the SMs issue come second).  At the N=128 epoch
+// the forest is 16,384 leaves of 129 bytes (3 compressions) plus 16,256
+// nodes, the verify 16,384 branches of 3 compressions and 7 nodes: ~26 us
+// of INT32-pipe work at peak; at N=512 the verify alone is 262,144
+// branches of 3 compressions and 9 nodes, 6.7 G INT32-pipe instructions,
+// 0.40 ms.  Each message has its own thread, so the 64 rounds
+// run in registers with no cross-thread traffic: the 16-word schedule is a
+// rolling window whose indices unroll to registers, the padded block is
+// assembled from the row's words (no host concatenation of the domain
+// byte, no padded copy), and a verify thread keeps its running digest in
+// registers through all D levels, building each 65-byte node message from
+// the two digests with word shifts.
+//
+// Leaf rows (merkle_forest_kernel and merkle_verify_kernel share this): a
+// block stages its rows in shared memory with coalesced 16-byte loads (byte
+// loads when a row is not 16-byte aligned), builds each leaf's message words
+// from them with byte permutes (the 0x00 prefix shifts the row by one byte),
+// and hashes rows past the 64 KB staging budget straight from global memory.
 //
 // The forest (merkle_forest_kernel) is one launch with one block per tree,
 // where the reference's and this port's first design ran a launch per level,
 // each with a dependent compression chain and, near the root, one or two
-// threads a tree.  The block stages its leaf rows in shared memory with
-// coalesced 16-byte loads (byte loads when a row is not 16-byte aligned),
-// builds each leaf's message words from them with byte permutes (the 0x00
-// prefix shifts the row by one byte), stores every digest as two 16-byte
-// words, and hashes the tree level by level with a barrier between levels;
-// a level reads its children from the forest in global memory, which a
-// barrier makes visible within the block, so any p up to the 65,536 leaves
-// of the GF(2^16) codec works.  sha256_rows keeps the one-thread-a-row form
-// for K4.
+// threads a tree.  It stores every digest as two 16-byte words and hashes
+// the tree level by level with a barrier between levels; a level reads its
+// children from the forest in global memory, which a barrier makes visible
+// within the block, so any p up to the 65,536 leaves of the GF(2^16) codec
+// works.  sha256_rows keeps the one-thread-a-row form for K4.
+//
+// The verify (merkle_verify_kernel) puts each level's digests in left/right
+// order with selects on bit d of the index, then hashes one node: the lanes
+// of a warp verify consecutive leaves of a tree (protocol/spmd.py), so the
+// low index bits differ across a warp, and a branch on them ran both node
+// hashes at 5 of the 7 (N=128) or 9 (N=512) levels, 1.5x the instructions
+// (csrc/sass_ops.py checks that the kernel holds one node's code).
+// Siblings and roots load as 16-byte words, the next level's while a node
+// hashes.  Its block size is picked from B and the SM count
+// (verify_threads): 256 threads, or fewer when blocks that large would
+// leave SMs without one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -180,38 +199,6 @@ __global__ void sha256_rows_kernel(const uint8_t* __restrict__ in, long long row
   store_digest16(st, out + t * 32);
 }
 
-__global__ void merkle_verify_kernel(const uint8_t* __restrict__ roots,
-                                     const uint8_t* __restrict__ leaves,
-                                     long long leaf_len,
-                                     const uint8_t* __restrict__ branches,
-                                     int depth,
-                                     const long long* __restrict__ indices,
-                                     uint8_t* __restrict__ ok, long long B) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  uint32_t cur[8];
-  sha256_msg(leaves + i * leaf_len, leaf_len, 0x00, cur);
-  uint32_t idx = (uint32_t)indices[i];  // u32 as the reference's kernel
-  const uint8_t* br = branches + i * depth * 32ll;
-  for (int lvl = 0; lvl < depth; ++lvl) {
-    uint32_t sib[8], nxt[8];
-    load_words(br + lvl * 32, sib);
-    if (idx & 1u)
-      sha256_node(sib, cur, nxt);
-    else
-      sha256_node(cur, sib, nxt);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cur[j] = nxt[j];
-    idx >>= 1;
-  }
-  uint32_t root[8];
-  load_words(roots + i * 32, root);
-  uint32_t diff = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) diff |= cur[j] ^ root[j];
-  ok[i] = diff == 0 ? 1 : 0;
-}
-
 // SHA-256(0x00 || row) of a row staged in shared memory as little-endian
 // words, zero from row word `lw` on, read 16 bytes at a time up to `lw4`
 // (lw rounded up to 4).  Message word i of a block holds row bytes 4i-1 ..
@@ -251,6 +238,62 @@ __device__ void sha256_leaf_staged(const uint32_t* row, int lw4, int len,
   }
 }
 
+// Words of a staged row of L bytes: L / 4 rounded up to a 16-byte multiple.
+__host__ __device__ __forceinline__ long long staged_words(long long L) {
+  return ((L + 3) / 4 + 3) / 4 * 4;
+}
+
+// Rows [0, here) of src (row i at src + i L) into shared memory at pitch_w
+// words a row, little-endian words, zero from byte L to the row's
+// staged_words(L); 16-byte loads when `aligned16` (L a multiple of 16 and
+// src 16-byte aligned), else byte loads.  The whole block takes part.
+__device__ void stage_rows(const uint8_t* __restrict__ src, long long L, int here,
+                           uint32_t* rows, int pitch_w, int aligned16) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  if (aligned16) {
+    const int chunks = (int)(L / 16);
+    for (int u = tid; u < here * chunks; u += T) {
+      const int rr = u / chunks, cc = u - rr * chunks;
+      reinterpret_cast<uint4*>(rows + rr * pitch_w)[cc] =
+          reinterpret_cast<const uint4*>(src + rr * L)[cc];
+    }
+  } else {
+    const int words = (int)staged_words(L);
+    for (int u = tid; u < here * words; u += T) {
+      const int rr = u / words, ww = u - rr * words;
+      const uint8_t* r = src + rr * L;
+      uint32_t v = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4ll * ww + c < L) v |= (uint32_t)r[4 * ww + c] << (8 * c);
+      rows[rr * pitch_w + ww] = v;
+    }
+  }
+}
+
+// SHA-256(0x00 || row t) of L bytes: from its staged words when pitch_w > 0,
+// else from `global` (the row in global memory; rows past the staging budget).
+__device__ __forceinline__ void leaf_digest(const uint32_t* rows, int t, int pitch_w,
+                                            long long L, const uint8_t* global,
+                                            uint32_t st[8]) {
+  if (pitch_w > 0)
+    sha256_leaf_staged(rows + t * pitch_w, (int)staged_words(L), (int)L, st);
+  else
+    sha256_msg(global, L, 0x00, st);
+}
+
+// A digest stored as 32 bytes: two 16-byte loads when `vec`, else byte loads.
+__device__ __forceinline__ void load_digest(const uint8_t* p, int vec, uint32_t w[8]) {
+  if (vec) {
+    const uint4 lo = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 hi = reinterpret_cast<const uint4*>(p)[1];
+    w[0] = bswap32(lo.x); w[1] = bswap32(lo.y); w[2] = bswap32(lo.z); w[3] = bswap32(lo.w);
+    w[4] = bswap32(hi.x); w[5] = bswap32(hi.y); w[6] = bswap32(hi.z); w[7] = bswap32(hi.w);
+  } else {
+    load_words(p, w);
+  }
+}
+
 // One block per tree: the leaf digests of rows [0, n) (in batches of
 // `rows_per_batch` rows, staged in shared memory at `pitch_w` words a row
 // when pitch_w > 0, else hashed straight from global memory), the empty-leaf
@@ -267,39 +310,17 @@ __global__ void merkle_forest_kernel(const uint8_t* __restrict__ shards,
   const int T = blockDim.x, tid = threadIdx.x;
   const uint8_t* src = shards + (long long)blockIdx.x * n * L;
   uint8_t* tree = forest + (long long)blockIdx.x * (2ll * p - 1) * 32;
-  const long long lw4 = ((L + 3) / 4 + 3) / 4 * 4;
 
   for (int i0 = 0; i0 < n; i0 += rows_per_batch) {
     const int here = min(rows_per_batch, n - i0);
     if (pitch_w > 0) {
       __syncthreads();  // the last batch's readers are done
-      if (aligned16) {
-        const int chunks = (int)(L / 16);
-        for (int u = tid; u < here * chunks; u += T) {
-          const int rr = u / chunks, cc = u - rr * chunks;
-          reinterpret_cast<uint4*>(rows + rr * pitch_w)[cc] =
-              reinterpret_cast<const uint4*>(src + (i0 + rr) * L)[cc];
-        }
-      } else {
-        const int words = (int)lw4;
-        for (int u = tid; u < here * words; u += T) {
-          const int rr = u / words, ww = u - rr * words;
-          const uint8_t* r = src + (i0 + rr) * L;
-          uint32_t v = 0;
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (4ll * ww + c < L) v |= (uint32_t)r[4 * ww + c] << (8 * c);
-          rows[rr * pitch_w + ww] = v;
-        }
-      }
+      stage_rows(src + i0 * L, L, here, rows, pitch_w, aligned16);
       __syncthreads();
     }
     for (int t = tid; t < here; t += T) {
       uint32_t st[8];
-      if (pitch_w > 0)
-        sha256_leaf_staged(rows + t * pitch_w, (int)lw4, (int)L, st);
-      else
-        sha256_msg(src + (i0 + t) * L, L, 0x00, st);
+      leaf_digest(rows, t, pitch_w, L, src + (i0 + t) * L, st);
       store_digest16(st, tree + (i0 + t) * 32ll);
     }
   }
@@ -337,11 +358,140 @@ __global__ void merkle_forest_kernel(const uint8_t* __restrict__ shards,
   }
 }
 
+// Thread i checks branch i: the leaf digest of row i (the block's rows
+// staged in batches of rows_per_batch, as the forest stages them), then each
+// level's node with the digests put in order by selects on the index bit,
+// the next level's sibling loading meanwhile, against roots[i].  `vec`:
+// roots and branches are 16-byte aligned.
+__global__ void merkle_verify_kernel(const uint8_t* __restrict__ roots,
+                                     const uint8_t* __restrict__ leaves,
+                                     long long L,
+                                     const uint8_t* __restrict__ branches,
+                                     int depth,
+                                     const long long* __restrict__ indices,
+                                     uint8_t* __restrict__ ok, long long B,
+                                     int rows_per_batch, int pitch_w,
+                                     int aligned16, int vec) {
+  extern __shared__ uint4 smem[];
+  uint32_t* rows = reinterpret_cast<uint32_t*>(smem);
+  const int tid = threadIdx.x;
+  const long long first = (long long)blockIdx.x * blockDim.x;
+  const int here_all = (int)min((long long)blockDim.x, B - first);
+  const uint8_t* src = leaves + first * L;
+  // the index, root and first sibling load while the leaf hashes
+  const bool live = tid < here_all;
+  const long long i = first + tid;
+  const uint8_t* br = branches + i * depth * 32ll;
+  uint32_t idx = 0, root[8], sib[8];
+  if (live) {
+    idx = (uint32_t)indices[i];  // u32 as the reference's kernel
+    load_digest(roots + i * 32, vec, root);
+    if (depth > 0) load_digest(br, vec, sib);
+  }
+  uint32_t cur[8];
+  for (int i0 = 0; i0 < here_all; i0 += rows_per_batch) {
+    const int here = min(rows_per_batch, here_all - i0);
+    if (pitch_w > 0) {
+      __syncthreads();  // the last batch's readers are done
+      stage_rows(src + i0 * L, L, here, rows, pitch_w, aligned16);
+      __syncthreads();
+    }
+    if (tid >= i0 && tid < i0 + here)
+      leaf_digest(rows, tid - i0, pitch_w, L, src + tid * L, cur);
+  }
+  if (!live) return;
+  for (int lvl = 0; lvl < depth; ++lvl) {
+    uint32_t next[8] = {};  // the next level's sibling, in flight during this node
+    if (lvl + 1 < depth) load_digest(br + (lvl + 1) * 32, vec, next);
+    uint32_t l[8], r[8];
+    const bool right = idx & 1u;  // cur is the right child
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l[j] = right ? sib[j] : cur[j];
+      r[j] = right ? cur[j] : sib[j];
+    }
+    sha256_node(l, r, cur);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sib[j] = next[j];
+    idx >>= 1;
+  }
+  uint32_t diff = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) diff |= cur[j] ^ root[j];
+  ok[i] = diff == 0 ? 1 : 0;
+}
+
 constexpr int kForestThreads = 128;
 constexpr int kLeafSmemBytes = 64 * 1024;  // leaf staging a block
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+// How a block of `threads` threads stages leaf rows of L bytes at src:
+// rows a batch, the pitch in words (0: hash from global memory) and
+// whether 16-byte loads apply.
+struct LeafPlan {
+  int rows, pitch_w, aligned16;
+  size_t smem() const { return (size_t)pitch_w * 4 * rows; }
+};
+
+inline LeafPlan leaf_plan(long long L, int threads, const void* src) {
+  // rows staged at a pitch of 4 (mod 8) words: 16-byte reads of one word
+  // offset by 8 lanes hit 8 distinct groups of 4 banks
+  const long long lw4 = staged_words(L);
+  long long pitch_w = lw4 % 8 == 4 ? lw4 : lw4 + 4;
+  long long rows = kLeafSmemBytes / (pitch_w * 4);
+  if (rows > threads) rows = threads;
+  if (rows < 1) {  // a row larger than the staging budget: read global memory
+    rows = threads;
+    pitch_w = 0;
+  }
+  return {(int)rows, (int)pitch_w, L % 16 == 0 && ((uintptr_t)src & 15) == 0};
+}
+
+// Threads a block of the verify over B branches on `sms` SMs: 256, halved
+// (down to 32) while blocks that large would leave SMs without one (the
+// N=128 epoch's 16,384 branches take 64-thread blocks, 256 of them; the
+// N=512 epoch's 262,144 take 256-thread blocks).
+inline int verify_threads(long long B, int sms) {
+  int t = 256;
+  while (t > 32 && (B + t - 1) / t < sms) t >>= 1;
+  return t;
+}
+
+// What a launch needs to know of the current device, set up once a device under
+// a lock, since a process may drive several cards: its SM count, and the Merkle
+// kernels' shared memory limit raised to the staging budget.
+constexpr int kMaxDevices = 64;
+struct DeviceState {
+  bool ready = false;
+  int sms = 0;
+};
+std::mutex g_device_mu;
+DeviceState g_device[kMaxDevices];
+
+// The current device's SM count in *sms, its state set up on first use.
+inline cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_device_mu);
+  DeviceState& d = g_device[dev];
+  if (!d.ready) {
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(merkle_forest_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kLeafSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(merkle_verify_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kLeafSmemBytes);
+    if (err != cudaSuccess) return err;
+    d.ready = true;
+  }
+  *sms = d.sms;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -370,48 +520,40 @@ extern "C" int merkle_forest(const void* shards, long long B, long long n,
   if (B < 1 || B > 0x7FFFFFFFll || n < 1 || n > (1ll << 20) || L < 0 ||
       ((uintptr_t)forest & 15) || ((uintptr_t)pad_digest & 15))
     return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merkle_forest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kLeafSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
   int p = 1;
   while (p < n) p <<= 1;
   int threads = p < kForestThreads ? p : kForestThreads;
   threads = (threads + 31) / 32 * 32;
-  // rows staged at a pitch of 4 (mod 8) words: 16-byte reads of one word
-  // offset by 8 lanes hit 8 distinct groups of 4 banks
-  const long long lw4 = ((L + 3) / 4 + 3) / 4 * 4;
-  long long pitch_w = lw4 % 8 == 4 ? lw4 : lw4 + 4;
-  long long rows = kLeafSmemBytes / (pitch_w * 4);
-  if (rows > threads) rows = threads;
-  if (rows < 1) {  // a row larger than the staging budget: read global memory
-    rows = threads;
-    pitch_w = 0;
-  }
-  const int aligned16 = L % 16 == 0 && ((uintptr_t)shards & 15) == 0;
-  const size_t smem = (size_t)(pitch_w * 4 * rows);
-  merkle_forest_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
+  const LeafPlan plan = leaf_plan(L, threads, shards);
+  merkle_forest_kernel<<<(unsigned)B, threads, plan.smem(), (cudaStream_t)stream>>>(
       (const uint8_t*)shards, (int)n, L, (uint8_t*)forest, p,
-      (const uint8_t*)pad_digest, (int)rows, (int)pitch_w, aligned16);
+      (const uint8_t*)pad_digest, plan.rows, plan.pitch_w, plan.aligned16);
   return (int)cudaGetLastError();
 }
 
-// ok[i] = branch i (depth sibling digests, bottom-up) proves leaf i at
-// indices[i] under roots[i].  Returns cudaGetLastError() (0 on success).
+// ok[i] = branch i (depth sibling digests, bottom-up) proves leaf i (row i
+// of leaves, leaf_len bytes) at the low 32 bits of indices[i] under
+// roots[i].  Any alignment.  One launch on `stream`; returns
+// cudaGetLastError() (0 on success).
 extern "C" int merkle_verify(const void* roots, const void* leaves,
                              long long leaf_len, const void* branches, int depth,
                              const void* indices, void* ok, long long B,
                              void* stream) {
-  if (B < 1 || leaf_len < 0 || depth < 0 ||
-      (B + kThreads - 1) / kThreads > 0x7FFFFFFFll)
+  if (B < 1 || leaf_len < 0 || depth < 0 || (B + 31) / 32 > 0x7FFFFFFFll)
     return (int)cudaErrorInvalidValue;
-  merkle_verify_kernel<<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = verify_threads(B, sms);
+  const LeafPlan plan = leaf_plan(leaf_len, threads, leaves);
+  const int vec = (((uintptr_t)roots | (uintptr_t)branches) & 15) == 0;
+  merkle_verify_kernel<<<(unsigned)((B + threads - 1) / threads), threads, plan.smem(),
+                         (cudaStream_t)stream>>>(
       (const uint8_t*)roots, (const uint8_t*)leaves, leaf_len,
       (const uint8_t*)branches, depth, (const long long*)indices,
-      (uint8_t*)ok, B);
+      (uint8_t*)ok, B, plan.rows, plan.pitch_w, plan.aligned16, vec);
   return (int)cudaGetLastError();
 }

@@ -426,18 +426,6 @@ def _check_bytes(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
         )
 
 
-def _launch(
-    fn: str, sites: Tuple[str, ...], ref: torch.Tensor, *args, lib: str = "modexp"
-) -> None:
-    """One launch of ``fn`` (from ``csrc/<lib>.cu``) on ``ref``'s card and
-    current stream."""
-    lib = _kb.load(lib)
-    with torch.cuda.device(ref.device):
-        rc = getattr(lib, fn)(*args, _kb.stream_of(ref))
-    _kb.check(rc, fn)
-    _kb.COUNTS.add(fn, sites)
-
-
 def mont_mul_batch(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Tensor:
     """K10: (B, 33) x, y in [0, p) -> (B, 33) x*y*2^-256 mod p."""
     _check_bytes("mont_mul_batch a", a, (-1, 33))
@@ -446,8 +434,8 @@ def mont_mul_batch(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Te
         return mont_mul_batch_plain(a, b, spec)
     out = torch.empty_like(a)
     if a.shape[0]:
-        _launch(
-            "mont_mul", ("mont_mul",), a, a.data_ptr(), b.data_ptr(),
+        _kb.launch(
+            "modexp", "mont_mul", ("mont_mul",), a, a.data_ptr(), b.data_ptr(),
             out.data_ptr(), a.shape[0], spec.words.ctypes.data,
         )
     return out
@@ -462,8 +450,8 @@ def pow_fused(base: torch.Tensor, exp: torch.Tensor, spec: MontSpec) -> torch.Te
         return pow_fused_plain(base, exp, spec)
     out = torch.empty_like(base)
     if base.shape[0]:
-        _launch(
-            "pow_fused", ("pow",), base, base.data_ptr(),
+        _kb.launch(
+            "modexp", "pow_fused", ("pow",), base, base.data_ptr(),
             exp.data_ptr(), out.data_ptr(), base.shape[0],
             spec.words.ctypes.data,
         )
@@ -484,8 +472,8 @@ def dual_pow_fused(
         return dual_pow_fused_plain(u1, e1, u2, e2, spec)
     out = torch.empty_like(u1)
     if b:
-        _launch(
-            "dual_pow_fused", ("dual_pow",), u1, u1.data_ptr(),
+        _kb.launch(
+            "modexp", "dual_pow_fused", ("dual_pow",), u1, u1.data_ptr(),
             e1.data_ptr(), u2.data_ptr(), e2.data_ptr(), out.data_ptr(), b,
             spec.words.ctypes.data,
         )
@@ -524,8 +512,8 @@ def pow_fused_grouped(
         dtype=torch.int32, device=exps.device,
     )
     sites = ("pow_grouped",)
-    _launch(
-        "comb_table", sites, exps, bases.data_ptr(), table.data_ptr(),
+    _kb.launch(
+        "modexp", "comb_table", sites, exps, bases.data_ptr(), table.data_ptr(),
         n, spec.words.ctypes.data,
     )
     # The table build reads no row index, so it goes first and the range
@@ -534,8 +522,8 @@ def pow_fused_grouped(
     # outside the table.
     lo_hi = torch.stack(torch.aminmax(rows))
     safe = rows.clamp(0, n - 1)
-    _launch(
-        "comb_apply", sites, exps, exps.data_ptr(), safe.data_ptr(),
+    _kb.launch(
+        "modexp", "comb_apply", sites, exps, exps.data_ptr(), safe.data_ptr(),
         table.data_ptr(), out.data_ptr(), m, spec.words.ctypes.data,
     )
     lo, hi = lo_hi.tolist()
@@ -554,10 +542,10 @@ def wide_pow_fused(base: torch.Tensor, exp: torch.Tensor, spec: WideSpec) -> tor
         return pow_fused_plain(base, exp, spec)
     out = torch.empty_like(base)
     if base.shape[0]:
-        _launch(
-            "wide_pow_fused", ("wide_pow",), base, base.data_ptr(),
+        _kb.launch(
+            "modexp_wide", "wide_pow_fused", ("wide_pow",), base, base.data_ptr(),
             exp.data_ptr(), out.data_ptr(), base.shape[0], spec.nw,
-            spec.words.ctypes.data, lib="modexp_wide",
+            spec.words.ctypes.data,
         )
     return out
 
@@ -578,10 +566,10 @@ def wide_dual_pow_fused(
         return dual_pow_fused_plain(u1, e1, u2, e2, spec)
     out = torch.empty_like(u1)
     if b:
-        _launch(
-            "wide_dual_pow_fused", ("wide_dual_pow",), u1, u1.data_ptr(),
+        _kb.launch(
+            "modexp_wide", "wide_dual_pow_fused", ("wide_dual_pow",), u1, u1.data_ptr(),
             e1.data_ptr(), u2.data_ptr(), e2.data_ptr(), out.data_ptr(), b,
-            spec.nw, spec.words.ctypes.data, lib="modexp_wide",
+            spec.nw, spec.words.ctypes.data,
         )
     return out
 

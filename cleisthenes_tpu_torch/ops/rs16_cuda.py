@@ -29,10 +29,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from cleisthenes_tpu_torch.csrc import build as _kb
 from cleisthenes_tpu_torch.ops import gf65536 as gf
+from cleisthenes_tpu_torch.ops.rs_cuda import mark_systematic, require_systematic
 from cleisthenes_tpu_torch.ops.sha256_cuda import _on_cuda
 
 # the multiplicative group's order; exp index 65535 is the zero slot
@@ -95,37 +95,6 @@ def gf65536_apply_plain(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.uint16)
 
 
-# matrices checked by mark_systematic: tensor -> its version at the check
-_SYSTEMATIC = WeakIdKeyDictionary()
-
-
-def mark_systematic(enc_mat: torch.Tensor, host: np.ndarray) -> None:
-    """Record that ``enc_mat``, a copy of the host array ``host``, is an
-    (n, k) matrix with an identity top, checking ``host``; the codec calls
-    this where it builds the matrix, so that no encode reads the matrix
-    back from the card."""
-    if host.ndim != 2 or host.shape[0] < host.shape[1]:
-        raise ValueError(
-            f"mark_systematic: need an (n, k) systematic matrix, n >= k, got {host.shape}"
-        )
-    if tuple(enc_mat.shape) != host.shape:
-        raise ValueError(f"mark_systematic: {tuple(enc_mat.shape)} is not {host.shape}")
-    k = host.shape[1]
-    if not np.array_equal(host[:k], np.eye(k, dtype=host.dtype)):
-        raise ValueError(f"mark_systematic: a {host.shape} matrix without an identity top")
-    _SYSTEMATIC[enc_mat] = enc_mat._version
-
-
-def _require_systematic(enc_mat: torch.Tensor) -> None:
-    """Raise unless ``mark_systematic`` checked ``enc_mat`` and it has not
-    been written to since."""
-    if _SYSTEMATIC.get(enc_mat) != enc_mat._version:
-        raise ValueError(
-            "rs16_encode: the matrix was not checked by mark_systematic, or "
-            "was written to since"
-        )
-
-
 def _gf65536_apply(
     mat: torch.Tensor, x: torch.Tensor, sites: Tuple[str, ...], systematic: bool
 ) -> torch.Tensor:
@@ -135,7 +104,7 @@ def _gf65536_apply(
     ``x`` into rows [0, k)."""
     _check_apply(mat, x)
     if systematic:
-        _require_systematic(mat)
+        require_systematic(mat, "rs16_encode")
     if not _on_cuda(mat, x):
         return gf65536_apply_plain(mat, x)
     b, k, s = x.shape
@@ -144,16 +113,12 @@ def _gf65536_apply(
     if b == 0 or s == 0:
         return out
     row0 = k if systematic else 0
-    lib = _kb.load("gf65536")
-    with torch.cuda.device(x.device):
-        rc = lib.gf65536_apply(
-            mat.data_ptr() + row0 * k * mat.element_size(),
-            m * k if mat.dim() == 3 else 0,
-            x.data_ptr(), out.data_ptr(), b, m - row0, k, s, row0,
-            _kb.stream_of(x),
-        )
-    _kb.check(rc, "gf65536_apply")
-    _kb.COUNTS.add("gf65536_apply", sites)
+    _kb.launch(
+        "gf65536", "gf65536_apply", sites, x,
+        mat.data_ptr() + row0 * k * mat.element_size(),
+        m * k if mat.dim() == 3 else 0,
+        x.data_ptr(), out.data_ptr(), b, m - row0, k, s, row0,
+    )
     return out
 
 

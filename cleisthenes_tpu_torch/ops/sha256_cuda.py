@@ -140,14 +140,11 @@ def build_forest_plain(shards: torch.Tensor) -> torch.Tensor:
     return torch.cat(levels, 1)
 
 
-def verify_branches_plain(
-    roots: torch.Tensor,
-    leaves: torch.Tensor,
-    branches: torch.Tensor,
-    indices: torch.Tensor,
+def branch_digests_plain(
+    leaves: torch.Tensor, branches: torch.Tensor, indices: torch.Tensor
 ) -> torch.Tensor:
-    """roots (B, 32), leaves (B, L), branches (B, D, 32) u8 sibling
-    paths bottom-up, indices (B,) -> (B,) bool."""
+    """The root each branch proves: leaves (B, L), branches (B, D, 32) u8
+    sibling paths bottom-up, indices (B,) (their low 32 bits) -> (B, 32)."""
     cur = sha256_rows_plain(leaves, LEAF_PREFIX)
     idx = indices.to(torch.int64) & _MASK  # u32, as the reference's kernel
     for lvl in range(branches.shape[1]):
@@ -157,7 +154,18 @@ def verify_branches_plain(
         right = torch.where(bit, cur, sib)
         cur = sha256_rows_plain(torch.cat([left, right], 1), NODE_PREFIX)
         idx = idx >> 1
-    return (cur == roots).all(1)
+    return cur
+
+
+def verify_branches_plain(
+    roots: torch.Tensor,
+    leaves: torch.Tensor,
+    branches: torch.Tensor,
+    indices: torch.Tensor,
+) -> torch.Tensor:
+    """roots (B, 32), leaves (B, L), branches (B, D, 32) u8 sibling
+    paths bottom-up, indices (B,) -> (B,) bool."""
+    return (branch_digests_plain(leaves, branches, indices) == roots).all(1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +184,9 @@ def _check_u8(name: str, t: torch.Tensor, ndim: int) -> None:
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """False for CPU tensors (plain version), True for CUDA tensors on
     one card; anything else raises."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError(f"tensors on several devices: {sorted({str(t.device) for t in tensors})}")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
@@ -200,14 +207,10 @@ def sha256_rows(msgs: torch.Tensor, prefix: Optional[int] = None) -> torch.Tenso
     b, l = msgs.shape
     out = torch.empty((b, 32), dtype=torch.uint8, device=msgs.device)
     if b:
-        lib = _kb.load("sha256")
-        with torch.cuda.device(msgs.device):
-            rc = lib.sha256_rows(
-                msgs.data_ptr(), b, l, -1 if prefix is None else prefix,
-                out.data_ptr(), _kb.stream_of(msgs),
-            )
-        _kb.check(rc, "sha256_rows")
-        _kb.COUNTS.add("sha256_rows", ("sha256_rows",))
+        _kb.launch(
+            "sha256", "sha256_rows", ("sha256_rows",), msgs,
+            msgs.data_ptr(), b, l, -1 if prefix is None else prefix, out.data_ptr(),
+        )
     return out
 
 
@@ -222,15 +225,11 @@ def _build_forest(shards: torch.Tensor, sites: Tuple[str, ...]) -> torch.Tensor:
     forest = torch.empty((b, 2 * p - 1, 32), dtype=torch.uint8, device=shards.device)
     if b == 0:
         return forest
-    lib = _kb.load("sha256")
     pad = _empty_leaf_on(shards.device)
-    with torch.cuda.device(shards.device):
-        rc = lib.merkle_forest(
-            shards.data_ptr(), b, n, l, forest.data_ptr(), pad.data_ptr(),
-            _kb.stream_of(shards),
-        )
-    _kb.check(rc, "merkle_forest")
-    _kb.COUNTS.add("merkle_forest", sites)
+    _kb.launch(
+        "sha256", "merkle_forest", sites, shards,
+        shards.data_ptr(), b, n, l, forest.data_ptr(), pad.data_ptr(),
+    )
     return forest
 
 
@@ -265,22 +264,19 @@ def verify_branches(
     if not _on_cuda(roots, leaves, branches, indices):
         return verify_branches_plain(roots, leaves, branches, indices)
     idx = indices.to(torch.int64).contiguous()
-    ok = torch.empty((b,), dtype=torch.uint8, device=leaves.device)
+    ok = torch.empty((b,), dtype=torch.bool, device=leaves.device)  # the kernel writes 0/1 bytes
     if b:
-        lib = _kb.load("sha256")
-        with torch.cuda.device(leaves.device):
-            rc = lib.merkle_verify(
-                roots.data_ptr(), leaves.data_ptr(), leaves.shape[1],
-                branches.data_ptr(), branches.shape[1], idx.data_ptr(),
-                ok.data_ptr(), b, _kb.stream_of(leaves),
-            )
-        _kb.check(rc, "merkle_verify")
-        _kb.COUNTS.add("merkle_verify", ("merkle_verify",))
-    return ok.bool()
+        _kb.launch(
+            "sha256", "merkle_verify", ("merkle_verify",), leaves,
+            roots.data_ptr(), leaves.data_ptr(), leaves.shape[1],
+            branches.data_ptr(), branches.shape[1], idx.data_ptr(), ok.data_ptr(), b,
+        )
+    return ok
 
 
 __all__ = [
     "EMPTY_LEAF_DIGEST",
+    "branch_digests_plain",
     "build_forest",
     "build_forest_plain",
     "next_pow2",

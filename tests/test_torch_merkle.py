@@ -117,11 +117,15 @@ def test_decode_recheck_matches_jax():
         jnp.asarray(ref_gf.lift_to_bits(a[k:]), dtype=jnp.bfloat16),
         jnp.asarray(shards),
     )
-    got_data, got_roots = rs_cuda.decode_recheck(_t(inv), _t(a), _t(shards))
+    # the re-encode takes the systematic matrix as rs_encode does: checked
+    # once by mark_systematic
+    enc = _t(a)
+    rs_cuda.mark_systematic(enc, a)
+    got_data, got_roots = rs_cuda.decode_recheck(_t(inv), enc, _t(shards))
     assert np.array_equal(got_data.numpy(), np.asarray(want_data))
     assert np.array_equal(got_roots.numpy(), np.asarray(want_roots))
     assert np.array_equal(got_data.numpy(), data)
-    plain = rs_cuda.decode_recheck_plain(_t(inv), _t(a), _t(shards))
+    plain = rs_cuda.decode_recheck_plain(_t(inv), enc, _t(shards))
     assert torch.equal(plain[0], got_data) and torch.equal(plain[1], got_roots)
     # the coder surface: mixed erasure patterns stay fused on the port
     coder = rs_cuda.CudaErasureCoder(n, k, device="cpu")
