@@ -89,11 +89,32 @@ before printing any result.  It prints, in order:
    through ``combine_shares_batch(..., backend='cuda')`` — the unfused
    decrypt branch, one generic-pow dispatch — must give the values the
    epoch's fused dispatch left in the combine memo;
-5. the seconds the run took after the build, the ``{"kernels": [...]}``
+5. after the three paths, the DKG path (ops/dkg.py) and the share
+   phase, each with the launch counts set to zero just before and read
+   just after: ``run_dkg(n=32, threshold=11)`` on the card with all four
+   fault knobs on distinct dealers and receivers, and
+   ``run_dkg(n=16, threshold=6, group=GROUP384)``, each equal integer for
+   integer to the same run on the 'cpu' backend, K7's generic pow (resp.
+   K12's wide pow) launched; the N=128 roster's per-node steps at full
+   size (t = 43): the roster-wide ``verify_pedersen_shares`` (737,280
+   rows), ``verify_dealer_shares`` (720,896) and one node's ``finalize``
+   (704,512), one K7 launch each, their verdicts (one tampered share a
+   check) and key held to the host, each split into packing, device leg
+   and host Python, K7 timed on each call's inputs (entry by CUDA
+   events, alone by a CUDA graph replay, its plain version, its bound)
+   and printed as one ``dkg_roster`` JSON line; then ``share_phase``:
+   f + 1 nodes' ``Tpke.dec_share_batch`` over 128 ciphertexts and f + 1
+   issuers' ``CommonCoin.share_batch`` over 128 coins (K9), and
+   ``verify_dec_shares`` / ``verify_shares_batch`` (K8) with one tampered
+   share, against the 'cpu' arm's shares, verdicts, plaintext and coin
+   bits;
+6. the seconds the run took after the build, the ``{"kernels": [...]}``
    JSON line (K1-K12; ``OFF_PATH``'s kernels, mont_mul and sha256_rows,
    which no path launches, carry the paths' 0 with their kernel-phase
    launches and the reason beside it; K1's, K2's, K3's and K11's entries
-   carry both their bounds, K5's and K6's their N=512 time and bound),
+   carry both their bounds, K5's and K6's their N=512 time and bound;
+   K7's carries the finalize call's times and bound, its launches on the
+   decrypt-combine and DKG paths, and the 5,504-item record beside),
    the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -242,6 +263,32 @@ def time_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int, side=None) -> float:
+    """ms a launch of ``fn`` without the host's launch cost: ``reps`` calls
+    captured in a CUDA graph on the stream ``side`` (a new one by
+    default), timed by CUDA events around a replay after a warm one."""
+    if side is None:
+        side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        graph.replay()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def hashlib_root(shards) -> bytes:
@@ -1075,6 +1122,14 @@ def wide_phase(torch, dev, rnd) -> dict:
     return out
 
 
+def launch_counts() -> dict:
+    """The launch counts since the last ``COUNTS.reset()``, by C entry
+    point and by entry-point site."""
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+
+    return {"kernels": dict(COUNTS.kernels), "sites": dict(COUNTS.sites)}
+
+
 def engine_split(engines, before) -> dict:
     """Splits ``bba_s`` by the 'cuda' modexp engines' own ``stats``
     since ``before``: seconds inside their batch calls (``engine_s``),
@@ -1148,7 +1203,7 @@ def main_path(torch, n: int, batch: int, epochs: int, waves: str, sites,
         )
     if on_card:
         torch.cuda.synchronize()
-    launches = {"kernels": dict(COUNTS.kernels), "sites": dict(COUNTS.sites)}
+    launches = launch_counts()
     committed = [tx for batch in cluster.committed_batches for tx in batch.tx_list()]
     if cluster.pending_tx_count() != 0:
         raise AssertionError(f"{cluster.pending_tx_count()} txs still pending")
@@ -1225,7 +1280,7 @@ def decrypt_combine_phase(torch, cluster, dev) -> dict:
     secs = time.perf_counter() - t0
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    launches = {"kernels": dict(COUNTS.kernels), "sites": dict(COUNTS.sites)}
+    launches = launch_counts()
     tpke._COMBINE_MEMO.clear()
     host = tpke.combine_shares_batch(sets, thr, group=group, backend="cpu")
     found = sum(v is not None for v in memo)
@@ -1242,6 +1297,283 @@ def decrypt_combine_phase(torch, cluster, dev) -> dict:
     )
     if not ok:
         raise AssertionError("decrypt combine on the card disagrees or never launched pow")
+    return launches
+
+
+# The DKG path (ops/dkg.py): the whole GJKR protocol, 256-bit and GROUP384,
+# each run with all four fault knobs on distinct dealers or receivers;
+# key: (n, threshold, group name, knobs, kernel that must launch)
+DKG_SEED = 2026
+DKG_RUNS = {
+    "g256": (32, 11, "DEFAULT_GROUP", {"corrupt_dealers": [3], "false_accusers": [7],
+                                       "phase2_cheaters": [11], "phase2_short_openers": [19]},
+             "pow_fused"),
+    "g384": (16, 6, "GROUP384", {"corrupt_dealers": [2], "false_accusers": [5],
+                                 "phase2_cheaters": [9], "phase2_short_openers": [13]},
+             "wide_pow_fused"),
+}
+# the BASELINE config-4 roster's per-node DKG steps: N=128, t = f + 1 = 43
+DKG_ROSTER = (128, 43)
+# the share phase's roster: the same, and the ciphertexts (and coins) of an epoch
+SHARE_ROSTER = (128, 43, 128)
+
+
+def dkg_ints(result):
+    """(pub, shares, qualified) of a DKG as plain integers."""
+    pub, shares, qualified = result
+    return (
+        (pub.n, pub.threshold, pub.master, tuple(pub.verification_keys), pub.group),
+        [(s.index, s.value) for s in shares],
+        list(qualified),
+    )
+
+
+def dkg_run_phase(torch, dev, runs=DKG_RUNS) -> dict:
+    """The whole protocol (``run_dkg``) on ``dev``, then on the port's
+    'cpu' backend (the native host modexp; Python's ``pow`` in GROUP384),
+    at the same seed: (pub, shares, qualified) must be equal integer for
+    integer, the corrupt dealer alone disqualified, the run's kernel
+    (K7's generic pow, or K12's wide pow) launched and no ``OFF_PATH``
+    entry point.  Returns {run: launch counts}."""
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import dkg, modmath
+
+    out = {}
+    for tag, (n, t, group_name, knobs, kernel) in runs.items():
+        group = getattr(modmath, group_name)
+        COUNTS.reset()
+        t0 = time.perf_counter()
+        card = dkg.run_dkg(n=n, threshold=t, group=group, seed=DKG_SEED,
+                           backend="cuda", device=dev, **knobs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = launch_counts()
+        t0 = time.perf_counter()
+        host = dkg.run_dkg(n=n, threshold=t, group=group, seed=DKG_SEED,
+                           backend="cpu", **knobs)
+        host_s = time.perf_counter() - t0
+        equal = dkg_ints(card) == dkg_ints(host)
+        qualified_ok = card[2] == [i for i in range(1, n + 1) if i not in knobs["corrupt_dealers"]]
+        launched = launches["kernels"].get(kernel, 0)
+        stray = [s for s in OFF_PATH if launches["sites"].get(s, 0)]
+        print(
+            f"dkg_run {tag}: run_dkg(n={n}, threshold={t}, group_bits={group.p.bit_length()}, "
+            f"seed={DKG_SEED}, {', '.join(f'{k}={v}' for k, v in knobs.items())}) "
+            f"qualified={len(card[2])} equal_to_cpu={equal} card_s={card_s} cpu_s={host_s} "
+            f"{kernel}_launches={launched} launches={json.dumps(launches, sort_keys=True)}",
+            flush=True,
+        )
+        if not (equal and qualified_ok and (dev.type == "cpu" or launched > 0) and not stray):
+            raise AssertionError(f"dkg run {tag}: equal={equal} qualified_ok={qualified_ok} "
+                                 f"{kernel}={launched} off-path launches {stray}")
+        out[tag] = launches
+    return out
+
+
+def dkg_roster_phase(torch, dev, roster=DKG_ROSTER) -> dict:
+    """The N=128 roster's per-node DKG steps at full size, on ``dev``: the
+    roster-wide phase-one check ``verify_pedersen_shares`` (N^2 share
+    pairs, t + 2 rows each), the phase-two ``verify_dealer_shares`` (t + 1
+    rows each) and one node's ``finalize`` (N x N x t rows), each one
+    ``pow_batch``, one K7 launch.  Each step is timed by the host clock
+    and split by the engine's ``stats`` into packing, the device leg
+    (upload, kernel, download) and the host's Python around the call
+    (items and products).  On the card K7's inputs are kept from each
+    call by a hook on the engine's ``_dispatch``, and its entry (CUDA events), kernel alone (a CUDA graph replay) and
+    plain version timed on them and held equal.  Every honest verdict
+    must be True and the one tampered share of each check False, the
+    node's share must match its verification key, and ``finalize``'s key
+    must equal the same call on the 'cpu' engine.  Returns the steps'
+    records."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.csrc.sass_ops import MONT_OPS
+    from cleisthenes_tpu_torch.ops import dkg
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+    from cleisthenes_tpu_torch.ops.modmath import DEFAULT_GROUP, get_engine
+
+    n, t = roster
+    gp = DEFAULT_GROUP
+    eng = get_engine("cuda", gp, dev)
+    t0 = time.perf_counter()
+    dealers = [dkg.PedersenDealing(i, n, t, gp, seed=DKG_SEED) for i in range(1, n + 1)]
+    ped = {d.dealer_index: d.pedersen_commitments("cuda", dev) for d in dealers}
+    feld = {d.dealer_index: d.commitments("cuda", dev) for d in dealers}
+    pairs = {(j, d.dealer_index): d.share_pair_for(j) for j in range(1, n + 1) for d in dealers}
+    print(f"dkg_roster: n={n} threshold={t}: dealings, commitments and {len(pairs)} share "
+          f"pairs set up in {time.perf_counter() - t0} s", flush=True)
+    me = 1
+    ped_items = [(ped[i], j, *pairs[j, i]) for j in range(1, n + 1) for i in range(1, n + 1)]
+    feld_items = [(feld[i], j, pairs[j, i][0]) for j in range(1, n + 1) for i in range(1, n + 1)]
+    # one tampered share a check, away from the batch's ends
+    bad_ped, bad_feld = len(ped_items) // 3, 2 * len(feld_items) // 3
+    c, j, s, s2 = ped_items[bad_ped]
+    ped_items[bad_ped] = (c, j, (s + 1) % gp.q, s2)
+    c, j, s = feld_items[bad_feld]
+    feld_items[bad_feld] = (c, j, (s + 1) % gp.q)
+    my_shares = {i: pairs[me, i][0] for i in range(1, n + 1)}
+    steps = {
+        "verify_pedersen_shares": lambda: dkg.verify_pedersen_shares(ped_items, gp, "cuda", dev),
+        "verify_dealer_shares": lambda: dkg.verify_dealer_shares(feld_items, gp, "cuda", dev),
+        "finalize": lambda: dkg.finalize(feld, me, my_shares, n, t, gp, "cuda", dev),
+    }
+    dispatch = eng._dispatch
+    out = {}
+    for name, fn in steps.items():
+        kept = []
+
+        def keep(kernel, *arrays, kept=kept):
+            kept.append((kernel, arrays))
+            return dispatch(kernel, *arrays)
+
+        before = dict(eng.stats)
+        COUNTS.reset()
+        eng._dispatch = keep  # this engine's calls only: its arrays, kept
+        try:
+            t0 = time.perf_counter()
+            res = fn()
+            step_s = time.perf_counter() - t0
+        finally:
+            del eng._dispatch
+        launches = launch_counts()
+        engine_s = eng.stats["engine_s"] - before["engine_s"]
+        device_s = eng.stats["device_s"] - before["device_s"]
+        rec = {
+            "step_s": step_s, "packing_s": engine_s - device_s, "device_s": device_s,
+            "host_python_s": step_s - engine_s, "rows": sum(a[0].shape[0] for _, a in kept),
+            "pow_launches": launches["sites"].get("pow", 0), "launches": launches,
+        }
+        if name == "finalize":
+            pub, share = res
+            t0 = time.perf_counter()
+            host_pub, _ = dkg.finalize(feld, me, my_shares, n, t, gp, "cpu")
+            rec["cpu_s"] = time.perf_counter() - t0
+            ok = pub == host_pub and pow(gp.g, share.value, gp.p) == pub.verification_keys[me - 1]
+        else:
+            bad = bad_ped if name == "verify_pedersen_shares" else bad_feld
+            ok = res == [i != bad for i in range(len(res))]
+        stray = [s_ for s_ in OFF_PATH if launches["sites"].get(s_, 0)]
+        ok = (ok and len(kept) == 1 and kept[0][0] is mx.pow_fused and not stray
+              and (dev.type == "cpu" or rec["pow_launches"] == 1))
+        if ok and dev.type == "cuda":
+            b_np, e_np = (np.array(a) for a in kept[0][1])
+            base, exp = torch.from_numpy(b_np).to(dev), torch.from_numpy(e_np).to(dev)
+            spec = eng._spec
+            got = mx.pow_fused(base, exp, spec)
+            plain = mx.pow_fused_plain(base, exp, spec)
+            rec["equal"] = bool(torch.equal(got, plain))
+            rec["max_abs_err"] = float((got.to(torch.int64) - plain.to(torch.int64)).abs().max())
+            rec["kernel_ms"] = time_ms(torch, lambda: mx.pow_fused(base, exp, spec), 5)
+            rec["alone_ms"] = graph_ms(torch, lambda: mx.pow_fused(base, exp, spec), 5)
+            rec["plain_ms"] = time_ms(torch, lambda: mx.pow_fused_plain(base, exp, spec), 1)
+            rec["products"] = pow_products(np, b_np, e_np)
+            rec["bound_ms"], rec["bound_by"] = bound(b_np.shape[0] * (33 + 32 + 33),
+                                                     rec["products"] * MONT_OPS)
+            rec["x_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            ok = ok and rec["equal"]
+        print(f"dkg_roster {name}: ok={ok} " + " ".join(
+            f"{k}={json.dumps(v, sort_keys=True) if isinstance(v, dict) else v}"
+            for k, v in rec.items()), flush=True)
+        if not ok:
+            raise AssertionError(f"dkg roster step {name} failed: {rec}")
+        out[name] = rec
+    print("dkg_roster " + json.dumps({
+        "n": n, "threshold": t,
+        "steps": {k: {f: v for f, v in r.items() if f != "launches"} for k, r in out.items()},
+        "pow_launches": sum(r["pow_launches"] for r in out.values()),
+    }, sort_keys=True), flush=True)
+    return out
+
+
+def share_phase(torch, dev, roster=SHARE_ROSTER) -> dict:
+    """The scalar and pooled share ops' batched forms on ``dev``, held to
+    the 'cpu' arm on the same dealt keys: f + 1 nodes'
+    ``Tpke.dec_share_batch`` over an epoch's ciphertexts (K9),
+    ``verify_dec_shares`` over their shares of one ciphertext, one
+    tampered (K8), and the combined plaintext; f + 1 issuers'
+    ``CommonCoin.share_batch`` over an epoch's coins (K9) and
+    ``verify_shares_batch`` over every coin's f + 1 shares, one tampered
+    (K8), and the coin bits.  Each share's d must equal the host arm's,
+    the verdicts must be the host arm's and flag the tampered share, the
+    plaintext and coin bits must agree.  Returns the launch counts."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import coin as coin_mod
+    from cleisthenes_tpu_torch.ops import tpke
+
+    n, t, n_ct = roster
+    rng = np.random.default_rng(16)
+    pub, keys = tpke.deal(n, t, seed=DKG_SEED)
+    card, host = tpke.Tpke(pub, "cuda", dev), tpke.Tpke(pub, "cpu")
+    msgs = [rng.integers(0, 256, 256, dtype=np.uint8).tobytes() for _ in range(n_ct)]
+    cts = [card.encrypt(m) for m in msgs]
+    coin_pub, coin_keys = tpke.deal(n, t, seed=DKG_SEED + 1)
+    ccard = coin_mod.CommonCoin(coin_pub, "cuda", dev)
+    chost = coin_mod.CommonCoin(coin_pub, "cpu")
+    cids = [b"epoch0|inst%03d|round0" % i for i in range(n_ct)]
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return res
+
+    bad = t // 2
+    COUNTS.reset()
+    dec = timed("dec_share_batch", lambda: [card.dec_share_batch(k, cts) for k in keys[:t]])
+    shown = [row[0] for row in dec]  # f + 1 nodes' shares of the first ciphertext
+    col = list(shown)
+    col[bad] = col[bad]._replace(z=(col[bad].z + 1) % pub.group.q)
+    verdicts = timed("verify_dec_shares", lambda: card.verify_dec_shares(cts[0], col))
+    cshares = timed("coin_share_batch", lambda: [ccard.share_batch(k, cids) for k in coin_keys[:t]])
+    entries = [(cid, [row[i] for row in cshares]) for i, cid in enumerate(cids)]
+    first = list(entries[0][1])
+    first[bad] = first[bad]._replace(z=(first[bad].z + 1) % coin_pub.group.q)
+    tampered = [(cids[0], first)] + entries[1:]
+    cverdicts = timed("coin_verify_shares_batch", lambda: ccard.verify_shares_batch(tampered))
+    launches = launch_counts()
+    plain = card.combine(cts[0], shown)
+    bits = [ccard.toss(cid, shs) for cid, shs in entries[:8]]
+    # the host arm: its own issue and combines (the memo cleared), its
+    # verdicts on the card's shares
+    tpke._COMBINE_MEMO.clear()
+    host_dec = host.dec_share_batch(keys[0], cts)
+    host_col = [host.dec_share(k, cts[0]) for k in keys[: t + 1]]
+    host_verdicts = host.verify_dec_shares(cts[0], col)
+    host_plain = host.combine(cts[0], host_col[1:])
+    host_cshares = chost.share_batch(coin_keys[1], cids)
+    host_cverdicts = chost.verify_shares_batch(tampered)
+    host_bits = [chost.toss(cid, [chost.share(k, cid) for k in coin_keys[t - 1 : 2 * t - 1]])
+                 for cid in cids[:8]]
+    want = [i != bad for i in range(t)]
+    checks = {
+        "dec_d_equal": [s.d for s in dec[0]] == [s.d for s in host_dec]
+        and [s.d for s in shown] == [s.d for s in host_col[:t]],
+        "dec_verdicts": verdicts == host_verdicts == want,
+        "plaintext": plain == host_plain == msgs[0],
+        "coin_d_equal": [s.d for s in cshares[1]] == [s.d for s in host_cshares],
+        "coin_verdicts": cverdicts == host_cverdicts and cverdicts[0] == want
+        and all(all(v) for v in cverdicts[1:]),
+        "coin_bits": bits == host_bits,
+        "launched": dev.type == "cpu" or (launches["sites"].get("pow_grouped", 0) > 0
+                                          and launches["sites"].get("dual_pow", 0) > 0),
+        "off_path": not any(launches["sites"].get(s, 0) for s in OFF_PATH),
+    }
+    tpke._COMBINE_MEMO.clear()
+    print(
+        f"share_phase: n={n} threshold={t} ciphertexts={n_ct} coins={len(cids)} "
+        f"seconds={json.dumps(secs)} checks={json.dumps(checks)} "
+        f"launches={json.dumps(launches, sort_keys=True)}",
+        flush=True,
+    )
+    if not all(checks.values()):
+        raise AssertionError(f"share phase disagrees with the cpu arm: {checks}")
     return launches
 
 
@@ -1492,16 +1824,28 @@ def main() -> int:
                "wide_pow", "wide_dual_pow"),
         absent=("pow_grouped", "dual_pow", "pow"),
     )
+    dkg_launches = dkg_run_phase(torch, dev)
+    dkg_steps = dkg_roster_phase(torch, dev)
+    share_launches = share_phase(torch, dev)
     # last, so that its epoch shifts nothing the timed paths share (the
     # combine memo's fill, the profiler's host objects)
     profile_phase(torch, 512, 4096)
     counts = dict(launches["sites"])
-    counts["pow"] = dec_launches["sites"].get("pow", 0)
+    pow_by_path = {
+        "decrypt_combine": dec_launches["sites"].get("pow", 0),
+        "dkg_run_n32": dkg_launches["g256"]["sites"].get("pow", 0),
+        "dkg_n128_steps": sum(r["pow_launches"] for r in dkg_steps.values()),
+    }
+    counts["pow"] = sum(pow_by_path.values())
     counts["gf65536_apply"] = launches_512["kernels"].get("gf65536_apply", 0)
     for name in ("wide_pow_fused", "wide_dual_pow_fused"):
         counts[name] = launches_384["kernels"].get(name, 0)
     records = {name: dict(rec) for name, rec in phases["n128"].items()}
     records.update(phases["modexp"])
+    # K7 at the largest shape of its path: one node's N=128 finalize
+    records["pow"] = dict(dkg_steps["finalize"], decrypt_combine_shape={
+        k_: phases["modexp"]["pow"][k_]
+        for k_ in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
     records["gf65536_apply"] = dict(phases["n512"]["rs16_encode"])
     for rec in records.values():  # the codecs' bound: the lesser of their two
         if "tc_bound_ms" in rec and rec["tc_bound_ms"] < rec["int_bound_ms"]:
@@ -1524,6 +1868,14 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,
         })
+        if name == "pow":
+            kernels[-1].update(launches_by_path=pow_by_path, rows=rec["rows"],
+                               alone_ms=rec["alone_ms"],
+                               decrypt_combine_shape=rec["decrypt_combine_shape"])
+        elif name == "wide_pow_fused":
+            kernels[-1]["launches_dkg_g384"] = dkg_launches["g384"]["kernels"].get(name, 0)
+        elif name in ("pow_grouped", "dual_pow"):
+            kernels[-1]["launches_share_phase"] = share_launches["sites"].get(name, 0)
         if name in OFF_PATH:
             kernels[-1]["kernel_phase_launches"] = rec["launches_per_call"]
             kernels[-1]["off_path"] = OFF_PATH[name]

@@ -11,8 +11,11 @@ every batched wave in hand-written CUDA kernels (``csrc/``): the RBC
 data plane — Reed-Solomon encode (GF(2^8), or GF(2^16) past 256
 validators), Merkle forest, the N^2 ECHO branch checks and the
 decode/re-encode/root recheck — and the BBA coin and decryption-share
-modexp (256-bit groups, and the wide families up to 2112 bits).  The
-defaults put the work on the card (``Config.crypto_backend='cuda'``,
+modexp (256-bit groups, and the wide families up to 2112 bits).  Its
+``ops/`` layer is the reference's whole: the host ``'cpu'`` and ``'cpp'``
+backends, the scalar and pooled threshold-share ops, and the GJKR DKG
+(``ops/dkg.py``), whose batched checks run on the same modexp kernels.
+The defaults put the work on the card (``Config.crypto_backend='cuda'``,
 ``Config.device='cuda'``); on a machine without a GPU they raise
 instead of running on the CPU.
 """

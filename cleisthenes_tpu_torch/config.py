@@ -12,7 +12,8 @@ the device-mesh layout for the batched crypto plane.
 
 This is the PyTorch port's copy of ``cleisthenes_tpu/config.py``.  It
 differs in three places: ``crypto_backend`` takes ``'cuda'`` (the
-default, hand-written CUDA kernels on an NVIDIA GPU) or ``'cpu'``;
+default, hand-written CUDA kernels on an NVIDIA GPU), ``'cpu'`` or
+``'cpp'`` (in place of the reference's ``'tpu'``);
 the new ``device`` field names the torch device the ``'cuda'`` backend
 runs on (tests pass ``device='cpu'`` to run the kernels' plain PyTorch
 versions); and ``mesh_shape`` is refused until the multi-device slice
@@ -62,8 +63,10 @@ class Config:
         docs/HONEYBADGER-EN.md:49-56).
       crypto_backend: 'cuda' (default: the RBC data plane in
         hand-written CUDA kernels, ops/rs_cuda.py and
-        ops/sha256_cuda.py) or 'cpu' (numpy + native host kernels) —
-        the BatchCrypto/ErasureCoder seam from BASELINE.json.
+        ops/sha256_cuda.py), 'cpu' (numpy + native host kernels) or
+        'cpp' (the GF(2^8) codec in the native host kernel, the rest
+        as 'cpu') — the BatchCrypto/ErasureCoder seam from
+        BASELINE.json.
       device: torch device of the 'cuda' backend ('cuda' default,
         'cuda:N', or 'cpu' to run the kernels' plain PyTorch versions
         — the tests' setting).  A CUDA device on a machine without a
@@ -242,7 +245,7 @@ class Config:
                 f"ledger_checkpoint_every={self.ledger_checkpoint_every} "
                 "must be >= 0 (0 disables checkpoints)"
             )
-        if self.crypto_backend not in ("cpu", "cuda"):
+        if self.crypto_backend not in ("cpu", "cpp", "cuda"):
             raise ValueError(f"unknown crypto_backend {self.crypto_backend!r}")
         if not (self.device == "cpu" or self.device.startswith("cuda")):
             raise ValueError(f"device={self.device!r}: need 'cuda[:N]' or 'cpu'")

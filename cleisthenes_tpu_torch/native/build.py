@@ -1,15 +1,18 @@
 """On-demand compilation + ctypes loading of the native host kernels.
 
-The port's copy of ``cleisthenes_tpu/native/build.py``, for the two
-host kernels the lockstep epoch uses: batched SHA-256 rows (ops/
-hashrows) and the 256-bit Montgomery modexp engine (ops/modmath).
+The port's copy of ``cleisthenes_tpu/native/build.py``, for its three
+host kernels: batched SHA-256 rows (ops/hashrows), the 256-bit
+Montgomery modexp engine (ops/modmath) and the GF(2^8) Reed-Solomon
+matmul of the ``'cpp'`` erasure backend (ops/rs_cpp).
 Each source compiles with g++ to a shared library under
 ``cleisthenes_tpu_torch/_build/native/`` cached by source hash
 (rebuilds on change, races benignly via atomic rename); loading is
 attempted once per process and failure degrades to the pure-python
 paths (hashlib, ``pow``), never to an exception — these are host
 kernels with exact host equivalents, unlike the CUDA kernels of
-``csrc/``, which raise.
+``csrc/``, which raise.  The GF(2^8) library has no such fallback:
+``CppErasureCoder`` raises when ``load_gf256`` returns None, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -81,6 +84,21 @@ def load_error(name: str) -> Optional[str]:
     return _ERRORS.get(name)
 
 
+def _configure_gf256(lib: ctypes.CDLL) -> None:
+    lib.gf256_matmul.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.gf256_matmul_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.gf256_selftest.restype = ctypes.c_int
+    rc = lib.gf256_selftest()
+    if rc != 0:
+        raise RuntimeError(f"gf256 selftest failed: {rc}")
+
+
 def _configure_modpow(lib: ctypes.CDLL) -> None:
     lib.modpow256_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -117,9 +135,24 @@ def load_sha256() -> Optional[ctypes.CDLL]:
     return _load("sha256rows", _configure_sha256)
 
 
+def load_gf256() -> Optional[ctypes.CDLL]:
+    """The GF(2^8) RS kernel library, or None (no toolchain)."""
+    return _load("gf256", _configure_gf256)
+
+
 def load_modpow() -> Optional[ctypes.CDLL]:
     """The 256-bit Montgomery modexp library, or None."""
     return _load("modpow256", _configure_modpow)
 
 
-__all__ = ["load_error", "load_modpow", "load_sha256"]
+def native_available() -> bool:
+    return load_gf256() is not None
+
+
+__all__ = [
+    "load_error",
+    "load_gf256",
+    "load_modpow",
+    "load_sha256",
+    "native_available",
+]

@@ -16,6 +16,9 @@ coin combine) sits behind ``BatchCrypto``/``ErasureCoder``, selected by
   over ops/modexp_cuda.py), on the same device.
 - ``'cpu'``: numpy GF tables, native batched SHA-256 and the native
   Montgomery modexp kernel — the reference's ``'cpu'`` backend.
+- ``'cpp'``: the reference's ``'cpp'`` backend — the GF(2^8) codec in
+  the native host kernel (ops/rs_cpp.py, native/gf256.cpp); hashing and
+  modexp on the ``'cpu'`` implementations.
 """
 
 from __future__ import annotations
@@ -116,13 +119,15 @@ def make_erasure_coder(
 ) -> ErasureCoder:
     if n > ErasureCoder.MAX_N:
         # past the GF(2^8) shard-index ceiling (the reference's hard
-        # limit): the GF(2^16) coders
+        # limit): the GF(2^16) coders.  The native C++ kernel is
+        # 8-bit-only, so 'cpp' serves these rosters from the host
+        # reference path.
         from cleisthenes_tpu_torch.ops.rs16 import (
             Cpu16ErasureCoder,
             Cuda16ErasureCoder,
         )
 
-        if backend == "cpu":
+        if backend in ("cpu", "cpp"):
             return Cpu16ErasureCoder(n, k)
         if backend == "cuda":
             return Cuda16ErasureCoder(n, k, device=device)
@@ -131,6 +136,10 @@ def make_erasure_coder(
         from cleisthenes_tpu_torch.ops.rs_cpu import CpuErasureCoder
 
         return CpuErasureCoder(n, k)
+    if backend == "cpp":
+        from cleisthenes_tpu_torch.ops.rs_cpp import CppErasureCoder
+
+        return CppErasureCoder(n, k)
     if backend == "cuda":
         from cleisthenes_tpu_torch.ops.rs_cuda import CudaErasureCoder
 
@@ -153,14 +162,15 @@ class BatchCrypto:
         self.erasure = make_erasure_coder(backend, n, k, device=device)
         # the card the modexp engine runs on (a 'cuda' backend's)
         self.device = resolve_device(device) if backend == "cuda" else None
-        # unlike the reference's 'cpp' backend (Merkle built from
-        # engine_backend), 'cuda' hashes on the card too
-        self.merkle = make_merkle(backend, device=device)
+        # the native backend accelerates the GF plane; hashing and
+        # modexp stay on their cpu reference implementations ('cuda'
+        # hashes on the card too)
+        self.merkle = make_merkle(self.engine_backend, device=device)
 
     @property
     def engine_backend(self) -> str:
         """Backend name for the modexp engine (tpke/coin)."""
-        return self.backend
+        return "cpu" if self.backend == "cpp" else self.backend
 
     def decode_recheck_batch(self, indices, shards):
         """RBC delivery check: decode + re-encode + Merkle roots
@@ -186,13 +196,15 @@ class BatchCrypto:
         """Threshold-decryption service bound to this backend."""
         from cleisthenes_tpu_torch.ops.tpke import Tpke
 
-        return Tpke(pub, backend=self.engine_backend)
+        return Tpke(pub, backend=self.engine_backend, device=self.device)
 
     def coin(self, pub):
         """Common-coin service bound to this backend."""
         from cleisthenes_tpu_torch.ops.coin import CommonCoin
 
-        return CommonCoin(pub, backend=self.engine_backend)
+        return CommonCoin(
+            pub, backend=self.engine_backend, device=self.device
+        )
 
 
 def get_backend(config) -> BatchCrypto:

@@ -5,7 +5,7 @@ Implements the four-call API the reference specifies but never codes
 
   TPKE.SetUp    -> ThresholdDealer / TpkeKeys (master pubkey + n shares)
   TPKE.Encrypt  -> Tpke.encrypt (hashed-ElGamal KEM under the master key)
-  TPKE.DecShare -> issue_shares_batch (share + Chaum-Pedersen proof)
+  TPKE.DecShare -> Tpke.dec_share (share + Chaum-Pedersen validity proof)
   TPKE.Decrypt  -> Tpke.combine (Lagrange over any f+1 verified shares,
                    docs/HONEYBADGER-EN.md:40-42)
 
@@ -18,12 +18,12 @@ Byzantine nodes are rejected before combination.  Share verification
 is 2 dual-exponentiations per share, batched across all N shares in
 one engine call (the "TPKE-share-verify ops/sec" BASELINE metric).
 
-This is the PyTorch port's copy of ``cleisthenes_tpu/ops/tpke.py``,
-cut to the calls the lockstep epoch (protocol/spmd.py) makes.  The
-batched share ops take the engine's ``backend`` and ``device``: with
-``'cuda'`` their exponentiations run on the card's Montgomery kernels
-(ops/modmath.py); single-shot ops (encrypt, deal, scalar combine) stay
-on the host engine, as in the reference.
+This is the PyTorch port's copy of ``cleisthenes_tpu/ops/tpke.py``.
+The batched share ops take the engine's ``backend`` and ``device`` (the
+reference's ``mesh``): with ``'cuda'`` their exponentiations run on the
+card's Montgomery kernels (ops/modmath.py); single-shot ops (encrypt,
+deal, scalar issue and combine) stay on the host engine, as in the
+reference.
 
 Security notes (documented, deliberate): hashed-ElGamal KEM + integrity
 tag in the random-oracle model; a production deployment would swap the
@@ -288,6 +288,37 @@ def deal(
     ]
 
 
+def issue_share(
+    share: ThresholdSecretShare,
+    base: int,
+    context: bytes,
+    group: GroupParams = DEFAULT_GROUP,
+) -> DhShare:
+    """d = base^{s_i} with CP proof bound to ``context``."""
+    # 8 excess bytes -> unbiased nonce: a biased Schnorr/CP nonce
+    # leaks the secret share to a lattice (hidden-number) attack over
+    # many observed shares, since z = w + e*s_i is linear in w
+    nonce = secrets.token_bytes(  # staticcheck: allow[DET001] CP-proof nonce
+        group.nbytes + 8
+    )
+    w = int.from_bytes(nonce, "big") % group.q
+    a1, a2, hi, d = host_pow_batch(
+        [group.g, base, group.g, base],
+        [w, w, share.value, share.value],
+        group,
+    )
+    nb = group.nbytes
+    e = (
+        _hash_to_int(
+            b"cp", context, _ibytes(base, nb), _ibytes(hi, nb),
+            _ibytes(d, nb), _ibytes(a1, nb), _ibytes(a2, nb),
+        )
+        % group.q
+    )
+    z = (w + e * share.value) % group.q
+    return DhShare(index=share.index, d=d, e=e, z=z)
+
+
 def issue_shares_batch(
     items: Sequence[tuple],
     group: GroupParams = DEFAULT_GROUP,
@@ -427,6 +458,39 @@ def combine_shares_batch(
     return results  # type: ignore[return-value]
 
 
+def verify_share_groups(
+    groups: Sequence[tuple],
+    backend: str = "cuda",
+    device="cuda",
+) -> List[List[bool]]:
+    """Batched CP verification across heterogeneous groups.
+
+    ``groups`` is a sequence of ``(pub, base, shares, context)`` — e.g.
+    one group per (proposer ciphertext) or per (BBA instance, round)
+    coin — and ALL of their CP proofs run as ONE dual-exponentiation
+    dispatch (K8 on the 'cuda' engine): recompute A1 = g^z * h_i^{-e},
+    A2 = base^z * d^{-e}, accept iff e == H(transcript).  This is the cross-instance batching
+    the protocol hub uses: an epoch's N TPKE ciphertexts and its
+    concurrent BBA coins verify together instead of one dispatch per
+    instance (the reference's cost model is 4N^2 shares/epoch,
+    docs/HONEYBADGER-EN.md:93-94).
+    """
+    if not groups:
+        return []
+    # one engine (and one batched dispatch) per distinct GroupParams;
+    # in practice a node's TPKE and coin keys share one group, so this
+    # stays a single dispatch
+    by_gp: Dict[GroupParams, List[int]] = {}
+    for gi, (pub, _base, _shares, _context) in enumerate(groups):
+        by_gp.setdefault(pub.group, []).append(gi)
+    results: Dict[int, List[bool]] = {}
+    for gp, idx_list in by_gp.items():
+        eng = get_engine_degraded(backend, gp, device)
+        a = _verify_pows_dual(gp, eng, groups, idx_list)
+        results.update(_cp_verdicts(gp, groups, idx_list, a))
+    return [results[gi] for gi in range(len(groups))]
+
+
 def _verify_dual_items(gp, groups, idx_list):
     """The (u1, e1, u2, e2) dual-exponentiation lists recomputing
     (A1, A2) for every share of ``idx_list``'s groups — shared by the
@@ -491,6 +555,13 @@ def _cp_verdicts(gp, groups, idx_list, a) -> Dict[int, List[bool]]:
             k += 1
         results[gi] = res
     return results
+
+
+def _verify_pows_dual(gp, eng, groups, idx_list) -> List[int]:
+    """(A1, A2) per share via the fused dual-exponentiation kernel
+    (the engine's ``dual_pow_batch``)."""
+    u1, e1, u2, e2 = _verify_dual_items(gp, groups, idx_list)
+    return eng.dual_pow_batch(u1, e1, u2, e2)
 
 
 def verify_and_combine_share_groups(
@@ -609,6 +680,213 @@ def verify_and_combine_share_groups(
     )
 
 
+def verify_shares(
+    pub: ThresholdPublicKey,
+    base: int,
+    shares: Sequence[DhShare],
+    context: bytes,
+    backend: str = "cuda",
+    device="cuda",
+) -> List[bool]:
+    """Single-group convenience over ``verify_share_groups``."""
+    if not shares:
+        return []
+    return verify_share_groups(
+        [(pub, base, shares, context)], backend, device
+    )[0]
+
+
+class SharePool:
+    """Sender-keyed pool of DhShares with deferred batched verification.
+
+    One slot per roster sender (an honest node submits exactly one
+    share per context), so a Byzantine peer can only ever occupy — and
+    then burn — its own slot: a sender whose share fails verification
+    is remembered in ``_burned`` and can never resubmit, bounding both
+    memory and re-verification work.  Valid shares are deduped by
+    Shamir index before combination (a Byzantine sender may replay
+    another node's valid share, which must not trip the distinct-
+    index requirement of Lagrange interpolation).
+
+    Shares sit in a *pending* set until verification verdicts arrive —
+    either via ``try_verified`` (self-contained, one verify call per
+    pool) or via ``collect_pending``/``apply_verdicts`` driven by the
+    protocol hub, which verifies MANY pools' pending shares in one
+    cross-instance dispatch (the reference's protocol.hub.CryptoHub).
+
+    Shared by the BBA common coin and the TPKE decryption path — the
+    two consumers of threshold shares in HBBFT.
+    """
+
+    __slots__ = ("threshold", "_pending", "_verified", "_burned",
+                 "_seen", "_lazy", "_n", "_idx_cover")
+
+    def __init__(self, threshold: int):
+        self.threshold = threshold
+        self._pending: Dict[str, DhShare] = {}
+        self._verified: Dict[str, DhShare] = {}
+        self._burned: set = set()
+        # one membership set over pending+verified+burned+lazy: the
+        # add paths make a single probe instead of three
+        self._seen: set = set()
+        # lazily-parked (sender, index, d, e, z) rows: the live path's
+        # wave handlers park ~N shares per pool but only ~threshold
+        # ever get consumed — DhShare objects materialize on first
+        # structured access, so arrival cost is probe+append
+        self._lazy: List[tuple] = []
+        self._n = 0  # pending+verified+lazy (burns decrement)
+        # distinct Shamir indices held (pending+verified+lazy) — an
+        # upper bound on achievable interpolation coverage, letting
+        # lazy row-store pulls stop the moment the threshold is
+        # coverable instead of materializing a whole wave (recomputed
+        # exactly when a burn invalidates it)
+        self._idx_cover: set = set()
+
+    def covered(self) -> int:
+        return len(self._idx_cover)
+
+    def add(self, sender: str, share: DhShare) -> bool:
+        """First share per non-burned sender wins."""
+        if sender in self._seen:
+            return False
+        self._seen.add(sender)
+        self._pending[sender] = share
+        self._idx_cover.add(share.index)
+        self._n += 1
+        return True
+
+    def add_lazy(
+        self, sender: str, index: int, d: int, e: int, z: int
+    ) -> bool:
+        """``add`` without constructing the DhShare: the batched wave
+        handlers' per-share fast path."""
+        if sender in self._seen:
+            return False
+        self._seen.add(sender)
+        self._lazy.append((sender, index, d, e, z))
+        self._idx_cover.add(index)
+        self._n += 1
+        return True
+
+    def _materialize(self) -> None:
+        if self._lazy:
+            pending = self._pending
+            for sender, index, d, e, z in self._lazy:
+                pending[sender] = DhShare(index, d, e, z)
+            self._lazy.clear()
+
+    def __len__(self) -> int:
+        """Potential size: pending + verified (the threshold trigger)."""
+        return self._n
+
+    def collect_pending(
+        self, limit: Optional[int] = None
+    ) -> Tuple[List[str], List[DhShare]]:
+        """Unverified shares for an external batched verify.
+
+        ``limit=None`` returns everything.  The hub passes
+        ``need_more()`` instead: only enough pending shares to reach
+        the threshold (counting distinct verified indices already
+        held), sorted by sender for determinism.  Surplus shares stay
+        parked — verifying a full wave's N shares when f+1 suffice is
+        pure modexp waste (the round-3 wave-batching regression: ~2.7x
+        the CP checks per pool); if a collected share fails, the next
+        flush pulls replacements from the parked surplus.
+        """
+        self._materialize()
+        if limit is None:
+            senders = list(self._pending)
+        else:
+            # skip shares whose Shamir index is already covered (a
+            # replayed honest share verifies fine but adds no distinct
+            # index) — both against the verified set and within the
+            # selected slice; skipped shares stay parked as fallback
+            have = {s.index for s in self._verified.values()}
+            senders = []
+            for sender in sorted(self._pending):
+                if len(senders) >= max(limit, 0):
+                    break
+                idx = self._pending[sender].index
+                if idx in have:
+                    continue
+                have.add(idx)
+                senders.append(sender)
+        return senders, [self._pending[s] for s in senders]
+
+    def need_more(self) -> int:
+        """How many additional verified index-distinct shares the
+        threshold still needs (0 = ready or no point verifying)."""
+        have = len({s.index for s in self._verified.values()})
+        return max(self.threshold - have, 0)
+
+    def apply_verdicts(self, senders: Sequence[str], ok: Sequence[bool]) -> None:
+        """Record external verification verdicts: valid shares move to
+        the verified set, senders of invalid ones burn."""
+        burned_any = False
+        for sender, good in zip(senders, ok):
+            share = self._pending.pop(sender, None)
+            if share is None:
+                continue
+            if good:
+                self._verified[sender] = share
+            else:
+                self._burned.add(sender)
+                self._n -= 1
+                burned_any = True
+        if burned_any:
+            # the burned share may have been an index's only holder:
+            # recompute the coverage bound exactly (rare path)
+            self._idx_cover = {
+                s.index for s in self._pending.values()
+            } | {s.index for s in self._verified.values()} | {
+                row[1] for row in self._lazy
+            }
+
+    def ready(self) -> Optional[List[DhShare]]:
+        """>= threshold index-distinct verified shares, or None."""
+        by_index: Dict[int, DhShare] = {}
+        for share in self._verified.values():
+            by_index.setdefault(share.index, share)
+        if len(by_index) < self.threshold:
+            return None
+        return list(by_index.values())
+
+    def optimistic_subset(self) -> Optional[List[DhShare]]:
+        """Threshold index-distinct shares counting UNVERIFIED ones
+        (verified preferred, then pending by sender order), or None.
+
+        For consumers whose combined output is self-authenticating
+        (TPKE: the ciphertext tag checks the combined KEM value), an
+        optimistic combine on this subset replaces per-share CP
+        verification in the honest case entirely; a tag failure means
+        some selected share was invalid, and the caller falls back to
+        the verified path, which burns the culprit.  NOT safe for the
+        common coin — its combined value has no independent check."""
+        self._materialize()
+        by_index: Dict[int, DhShare] = {}
+        for share in self._verified.values():
+            by_index.setdefault(share.index, share)
+        for sender in sorted(self._pending):
+            share = self._pending[sender]
+            by_index.setdefault(share.index, share)
+        if len(by_index) < self.threshold:
+            return None
+        return list(by_index.values())
+
+    def try_verified(self, verify_fn) -> Optional[List[DhShare]]:
+        """Self-contained threshold check: if >= threshold shares are
+        pooled, batch-verify the pending ones (``verify_fn(shares) ->
+        List[bool]``, ONE dispatch under 'cuda'), burn invalid senders,
+        and return >= threshold index-distinct valid shares — or None
+        if not there yet."""
+        if len(self) < self.threshold:
+            return None
+        senders, shares = self.collect_pending()
+        if shares:
+            self.apply_verdicts(senders, verify_fn(shares))
+        return self.ready()
+
+
 # The combined value is a pure function of (group, threshold, the
 # chosen subset's (index, d) pairs) — z/e play no part in combining.
 # Every node of a cluster combines the same subset for the same coin
@@ -705,10 +983,13 @@ class Tpke:
     """Threshold decryption service for one key set."""
 
     def __init__(
-        self, pub: ThresholdPublicKey, backend: str = "cuda"
+        self, pub: ThresholdPublicKey, backend: str = "cuda", device="cuda"
     ):
         self.pub = pub
         self.backend = backend
+        # the card the batched share ops run on (a 'cuda' backend's; the
+        # engine resolves it, and raises on a machine without a GPU)
+        self.device = device
         self.group = pub.group  # the key set carries its group
 
     # TPKE.Encrypt (docs/THRESHOLD_ENCRYPTION-EN.md:34)
@@ -739,6 +1020,51 @@ class Tpke:
             + hashlib.sha256(ct.c2).digest()
         )
 
+    _context = context  # internal alias
+
+    # TPKE.DecShare (docs/THRESHOLD_ENCRYPTION-EN.md:35)
+    def dec_share(
+        self, share: ThresholdSecretShare, ct: Ciphertext
+    ) -> DhShare:
+        return issue_share(share, ct.c1, self._context(ct), self.group)
+
+    def dec_share_items(
+        self, share: ThresholdSecretShare, cts: Sequence[Ciphertext]
+    ) -> List[tuple]:
+        """The ``(share, base, context, vk)`` rows
+        ``issue_shares_batch`` takes for this key set — the ONE place
+        the CP-proof context/vk binding is built, shared by
+        ``dec_share_batch`` and the CryptoHub's eager dec-share
+        column (K-deep pipelining) so the two issue paths can never
+        bind different contexts."""
+        vk = self.pub.verification_keys[share.index - 1]
+        return [(share, ct.c1, self._context(ct), vk) for ct in cts]
+
+    def dec_share_batch(
+        self, share: ThresholdSecretShare, cts: Sequence[Ciphertext]
+    ) -> List[DhShare]:
+        """All of an epoch's decryption shares in ONE batched
+        exponentiation dispatch and one CP-nonce entropy draw —
+        semantically ``[dec_share(share, ct) for ct in cts]`` (the
+        wave-columnar protocol path's issue seam; scalar dec_share
+        was N 4-exp calls + N urandom reads per node per epoch)."""
+        if not cts:
+            return []
+        return issue_shares_batch(
+            self.dec_share_items(share, cts),
+            group=self.group,
+            backend=self.backend,
+            device=self.device,
+        )
+
+    def verify_dec_shares(
+        self, ct: Ciphertext, shares: Sequence[DhShare]
+    ) -> List[bool]:
+        return verify_shares(
+            self.pub, ct.c1, shares, self._context(ct), self.backend,
+            self.device,
+        )
+
     # TPKE.Decrypt (docs/THRESHOLD_ENCRYPTION-EN.md:36)
     def combine(
         self, ct: Ciphertext, shares: Sequence[DhShare]
@@ -764,9 +1090,13 @@ __all__ = [
     "ThresholdPublicKey",
     "ThresholdSecretShare",
     "DhShare",
+    "SharePool",
     "Ciphertext",
     "deal",
+    "issue_share",
     "issue_shares_batch",
+    "verify_shares",
+    "verify_share_groups",
     "verify_and_combine_share_groups",
     "combine_shares",
     "combine_shares_batch",

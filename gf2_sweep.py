@@ -309,6 +309,8 @@ def _timed(torch, fn, side, reps=20):
     a replay of the same launches captured in a CUDA graph, the device's
     time without the host's launch cost (which bounds the first from
     below at ~5-9 us a launch of a small kernel: ``launch_only``)."""
+    import chip_smoke as cs
+
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -320,18 +322,7 @@ def _timed(torch, fn, side, reps=20):
         end.record()
         end.synchronize()
         launches = start.elapsed_time(end) / reps
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(reps):
-            fn()
-    with torch.cuda.stream(side):
-        graph.replay()
-        torch.cuda.synchronize()
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-    return launches, start.elapsed_time(end) / reps
+    return launches, cs.graph_ms(torch, fn, reps, side)
 
 
 def ablations(torch, parent) -> bool:

@@ -2,9 +2,12 @@
 fallback.
 
 Importing every module of ``cleisthenes_tpu_torch`` (and chip_smoke.py,
-wide_sweep.py) in a fresh interpreter must leave ``jax`` and
-``cleisthenes_tpu`` out of ``sys.modules``; and on a machine without a GPU the defaults, which put
-the work on the card, must raise rather than run on the CPU."""
+wide_sweep.py) in a fresh interpreter, then running the host-side paths
+whose imports are deferred to the call — the DKG, the ``'cpp'`` codec
+over the native GF(2^8) library, the scalar share ops — must leave
+``jax`` and ``cleisthenes_tpu`` out of ``sys.modules``; and on a machine
+without a GPU the defaults, which put the work on the card, must raise
+rather than run on the CPU."""
 
 import os
 import subprocess
@@ -27,6 +30,18 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke, wide_sweep
+import numpy as np
+from cleisthenes_tpu_torch.native import load_gf256
+from cleisthenes_tpu_torch.ops import coin, dkg, tpke
+from cleisthenes_tpu_torch.ops.backend import get_backend
+from cleisthenes_tpu_torch.config import Config
+assert {"cleisthenes_tpu_torch.ops.dkg", "cleisthenes_tpu_torch.ops.rs_cpp"} <= set(names)
+assert load_gf256() is not None
+crypto = get_backend(Config(n=4, crypto_backend="cpp"))
+crypto.erasure.encode_batch(np.zeros((2, 2, 8), dtype=np.uint8))
+pub, shares, _ = dkg.run_dkg(n=4, threshold=2, seed=1, backend="cpu")
+sh = coin.CommonCoin(pub, backend="cpu").share(shares[0], b"c")
+assert tpke.verify_shares(pub, coin.coin_base(b"c"), [sh], b"coin|c", backend="cpu") == [True]
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -64,7 +79,7 @@ def test_default_cluster_raises_without_a_gpu():
     "kwargs",
     [
         {"crypto_backend": "tpu"},
-        {"crypto_backend": "cpp"},
+        {"device": "mps"},
         {"device": "tpu"},
         {"mesh_shape": (2, 2)},
     ],

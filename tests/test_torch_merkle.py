@@ -25,8 +25,12 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.mark.parametrize("length", [0, 1, 55, 56, 63, 64, 65, 119, 200])
+@pytest.mark.parametrize(
+    "length", [0, 1, 31, 32, 55, 56, 63, 64, 65, 119, 127, 200, 1000]
+)
 def test_sha256_plain_matches_jax_and_hashlib(length):
+    """Also tests/test_merkle.py's ``TestSha256Xla.test_matches_hashlib``:
+    its lengths, on the plain version and the wrapper."""
     rng = np.random.default_rng(length)
     msgs = rng.integers(0, 256, (6, length), dtype=np.uint8)
     got = sha256_cuda.sha256_rows_plain(_t(msgs)).numpy()
@@ -35,10 +39,20 @@ def test_sha256_plain_matches_jax_and_hashlib(length):
         assert np.array_equal(got, want)
     for row, dig in zip(msgs, got):
         assert dig.tobytes() == hashlib.sha256(row.tobytes()).digest()
+    assert np.array_equal(sha256_cuda.sha256_rows(_t(msgs)).numpy(), got)
     # the wrapper with a domain byte, as the forest uses it
     pref = sha256_cuda.sha256_rows(_t(msgs), 0x01).numpy()
     for row, dig in zip(msgs, pref):
         assert dig.tobytes() == hashlib.sha256(b"\x01" + row.tobytes()).digest()
+
+
+def test_sha256_known_vector():
+    """tests/test_merkle.py's ``TestSha256Xla.test_known_vector``."""
+    msg = np.frombuffer(b"abc", dtype=np.uint8)[None]
+    got = sha256_cuda.sha256_rows(_t(msg)).numpy()[0].tobytes()
+    assert got.hex() == (
+        "ba7816bf8f01cfea414140de5dae2223b00361a396177a9cb410ff61f20015ad"
+    )
 
 
 def test_empty_leaf_sentinel_is_the_reference_one():
