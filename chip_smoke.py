@@ -30,7 +30,10 @@ before printing any result.  It prints, in order:
    engine sends them), the dual pow at both (22,016 and 350,208 rows,
    half of them Lagrange rows u2=1, e2=0), both also untimed on ragged
    batches (1, 33, 127, 129 rows; a base with a single exponent), the
-   generic pow (5,504 items) and the Montgomery product (16,384) — held
+   generic pow (5,504 items, the decrypt-combine shape; untimed also at
+   both of its plans' boundary, on all-zero, all-short and
+   length-ordered exponents and on ragged batches of 1, 31, 33 and 4,099
+   rows: ``pow_edge_rows``) and the Montgomery product (16,384) — held
    against their plain versions (timed once after a warm-up at N=512)
    and against Python's ``pow`` on a sample, in the default group and,
    parity only, in a second 256-bit group; the
@@ -60,7 +63,8 @@ before printing any result.  It prints, in order:
    events, median of 20 calls after a warm-up; 5 for the 2048-bit
    group), the plain version's (median of 3), launches per call and the
    bound (for a pow or dual pow, from the fewest Montgomery products a
-   fixed-window method needs for the run's exponents; for the comb, the
+   fixed-window method needs for the run's exponents, each product's
+   instructions split by pipe, ``mont_bound``; for the comb, the
    fewest a comb of any width 2..8 per base needs, ``least_comb``; for
    the GF codecs also the tensor-core bound, their bit products at the
    b1 yardstick against their bytes);
@@ -100,9 +104,11 @@ before printing any result.  It prints, in order:
    rows), ``verify_dealer_shares`` (720,896) and one node's ``finalize``
    (704,512), one K7 launch each, their verdicts (one tampered share a
    check) and key held to the host, each split into packing, device leg
-   and host Python, K7 timed on each call's inputs (entry by CUDA
-   events, alone by a CUDA graph replay, its plain version, its bound)
-   and printed as one ``dkg_roster`` JSON line; then ``share_phase``:
+   and host Python, K7 held to its plain version and to ``pow`` on a
+   sample and timed on each call's inputs (entry by CUDA events, alone by
+   a CUDA graph replay, its plain version, its bound, its plan and the
+   products of its schedule) and printed as one ``dkg_roster`` JSON line;
+   then ``share_phase``:
    f + 1 nodes' ``Tpke.dec_share_batch`` over 128 ciphertexts and f + 1
    issuers' ``CommonCoin.share_batch`` over 128 coins (K9), and
    ``verify_dec_shares`` / ``verify_shares_batch`` (K8) with one tampered
@@ -113,8 +119,9 @@ before printing any result.  It prints, in order:
    which no path launches, carry the paths' 0 with their kernel-phase
    launches and the reason beside it; K1's, K2's, K3's and K11's entries
    carry both their bounds, K5's and K6's their N=512 time and bound;
-   K7's carries the finalize call's times and bound, its launches on the
-   decrypt-combine and DKG paths, and the 5,504-item record beside),
+   K7's carries the finalize call's times, bound and plan, its launches
+   on the decrypt-combine and DKG paths, and the 5,504-item record
+   beside),
    the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +152,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 ISSUE_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# the FMA pipe's integer multiplies (IMAD, IMAD.WIDE, IMAD.HI): 64 results
+# a clock an SM for "32-bit integer multiply, multiply-add, extended-
+# precision multiply-add" at compute capability 9.0 (the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table)
+FMA_INT_OPS_PER_S = 132 * 64 * 1.98e9
 # dense INT8 tensor-core peak of the same data sheet, 1,979 TOPS, at two
 # operations a multiply-accumulate (K11's b1 yardstick scales by it)
 S8_PUBLISHED_MACS_PER_S = 1979e12 / 2
@@ -198,13 +210,33 @@ def blocks(msg_len: int) -> int:
     return (msg_len + 9 + 63) // 64
 
 
-def bound(nbytes: int, ops: int, issued: int = 0):
+def bound(nbytes: int, ops: int, issued: int = 0, fma: int = 0):
     """(bound_ms, bound_by) from bytes moved against int32 operations:
     ``ops`` on the INT32 lanes and, where their pipes are known,
-    ``issued`` (those and the rest) at the issue rate."""
+    ``fma`` integer multiplies on the FMA pipe and ``issued`` (all of
+    them) at the issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(ops / INT32_OPS_PER_S, issued / ISSUE_OPS_PER_S)
+    t_ops = max(ops / INT32_OPS_PER_S, fma / FMA_INT_OPS_PER_S, issued / ISSUE_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mont_bound(nbytes: int, products: int):
+    """(bound_ms, bound_by) of ``products`` 256-bit Montgomery products on
+    ``nbytes`` of I/O, each product's instructions split by pipe as
+    ``sass_ops.MONT_PIPE_OPS`` counts them in the SASS (INT32 pipe, FMA
+    pipe, issued)."""
+    from cleisthenes_tpu_torch.csrc.sass_ops import MONT_PIPE_OPS
+
+    i32, fma, issued = (products * c for c in MONT_PIPE_OPS)
+    return bound(nbytes, i32, issued, fma)
+
+
+def mont_bound_one_pipe(nbytes: int, products: int):
+    """The same bound as the 256-bit kernels were held to before the split
+    by pipe: every ALU instruction (``MONT_OPS``) at the INT32 rate."""
+    from cleisthenes_tpu_torch.csrc.sass_ops import MONT_OPS
+
+    return bound(nbytes, products * MONT_OPS)[0]
 
 
 def sha_ops(n_blocks: int, n_nodes: int):
@@ -760,6 +792,82 @@ def least_dual(np, e1, e2):
     )
 
 
+def exp_bit_lengths(np, exps):
+    """(B,) int64 bit lengths of (B, 32) big-endian exponent rows."""
+    m = exps.shape[0]
+    nz = exps != 0
+    first = np.where(nz.any(1), nz.argmax(1), 32)
+    top = exps[np.arange(m), np.minimum(first, 31)].astype(np.int64)
+    return np.where(first < 32, 8 * (31 - first) + np.floor(np.log2(np.maximum(top, 1))).astype(np.int64) + 1, 0)
+
+
+def pow_window(bits: int, wmax: int) -> int:
+    """K7's window for a warp whose longest exponent has ``bits`` bits
+    (csrc/modexp.cu ``pow_window``): the w in 1..wmax with the fewest of
+    the table's 2^w - 2 products and, per digit after the top one, w
+    squarings and a table product; the lesser w on a tie."""
+    costs = [(2**w - 2 + (-(-bits // w) - 1) * (w + 1), w) for w in range(1, wmax + 1)]
+    return min(costs)[1]
+
+
+def pow_schedule(np, base, exp, wmax: int, rows_per_warp: int, order: bool = True):
+    """Per row, the Montgomery products K7's schedule makes for it
+    (csrc/modexp.cu ``pow_kernel``): the rows ordered by exponent bit
+    length, longest first (stable; the kernel's order within a length is
+    the scatter's, which moves only the zero-digit skips), ``rows_per_warp``
+    a warp (32 / T), the last warp filled with the last row; per warp from
+    its longest exponent's bits b: none for b = 0, else its window w
+    (``pow_window``), into the domain (one more product where a row's 33rd
+    byte folds), the table's 2^w - 2, w squarings for each digit after the
+    top one and a table product where any of the warp's digits there is
+    nonzero; and one out of the domain.  Returns (B,) int64 in the rows'
+    own order."""
+    n = exp.shape[0]
+    bits = exp_bit_lengths(np, exp)
+    window = [0] + [pow_window(b, wmax) for b in range(1, 257)]
+    perm = np.argsort(-bits, kind="stable") if order else np.arange(n)
+    pad = (-n) % rows_per_warp
+    perm = np.concatenate([perm, np.full(pad, perm[-1])])
+    warps = len(perm) // rows_per_warp
+    out = np.zeros(len(perm), np.int64)
+    step = 4096
+    for lo in range(0, warps, step):
+        idx = perm[lo * rows_per_warp : (lo + step) * rows_per_warp]
+        m = len(idx) // rows_per_warp
+        wb = bits[idx].reshape(m, rows_per_warp).max(1)
+        fold = (base[idx, 32] != 0).reshape(m, rows_per_warp).any(1)
+        wsel = np.array(window)[wb]
+        nd = np.where(wb > 0, -(-wb // np.maximum(wsel, 1)), 0)
+        mults = np.zeros(m, np.int64)
+        ebits = np.unpackbits(exp[idx], axis=1)
+        for w in range(1, wmax + 1):
+            sel = wsel == w
+            if not sel.any():
+                continue
+            b = np.pad(ebits, ((0, 0), ((-256) % w, 0)))
+            dig = b.reshape(len(idx), -1, w).any(2)[:, ::-1]  # least significant first
+            dig = dig.reshape(m, rows_per_warp, -1).any(1)
+            below = np.arange(dig.shape[1])[None, :] < (nd - 1)[:, None]
+            mults[sel] = (dig & below).sum(1)[sel]
+        cnt = np.where(wb > 0, 1 + fold + 2**wsel - 2 + wsel * (nd - 1) + mults, 0) + 1
+        out[lo * rows_per_warp : lo * rows_per_warp + len(idx)] = np.repeat(cnt, rows_per_warp)
+    per_row = np.empty(n, np.int64)
+    per_row[perm[:n]] = out[:n]
+    return per_row
+
+
+def schedule_products(np, base, exp, plan: str) -> int:
+    """The products K7's schedule (``pow_schedule``) makes for these rows
+    under csrc/modexp.cu's ``plan`` (ordered by length under ``PowPlan``),
+    one count a row."""
+    from cleisthenes_tpu_torch.csrc.sass_ops import modexp_plans
+    from cleisthenes_tpu_torch.ops.modexp_cuda import POW_ORDERED
+
+    pl = modexp_plans()[plan]
+    return int(pow_schedule(np, base, exp, pl["window"], 32 // pl["team"],
+                            POW_ORDERED[plan]).sum())
+
+
 def pow_products(np, base, exp) -> int:
     """Montgomery products K7's function needs for these inputs:
     ``least_pow``, plus one where a 33rd byte folds into the domain."""
@@ -782,10 +890,7 @@ def least_comb(np, bases, exps, rows) -> int:
     rows of the base's widest exponent of b bits; per exponent, a multiply
     per nonzero w-bit digit after the first and one out of the domain."""
     n_b, m = bases.shape[0], exps.shape[0]
-    nzb = exps != 0
-    first = np.where(nzb.any(1), nzb.argmax(1), 32)
-    top = exps[np.arange(m), np.minimum(first, 31)].astype(np.int64)
-    ebits = np.where(first < 32, 8 * (31 - first) + np.floor(np.log2(np.maximum(top, 1))).astype(np.int64) + 1, 0)
+    ebits = exp_bit_lengths(np, exps)
     bbits = np.zeros(n_b, np.int64)
     np.maximum.at(bbits, rows, ebits)
     into = 1 + (bases[:, 32] != 0)
@@ -845,19 +950,98 @@ def dual_inputs(rnd, p: int, n: int):
     return u1, e1, u2, e2
 
 
+# the K7 call of each of the N=128 roster's per-node DKG steps (ops/dkg.py):
+# rows a (receiver, dealer) pair beyond the pair's t commitment terms
+DKG_STEP_EXTRA = {"verify_pedersen_shares": 2, "verify_dealer_shares": 1, "finalize": 0}
+
+
+def dkg_step_rows(np, rng, p: int, n: int, t: int, step: str):
+    """(bases, exponents), (B, 33) and (B, 32) uint8 rows, of one DKG
+    step's K7 call at roster (n, t) in the step's order (ops/dkg.py): for
+    each evaluation point j (the receiver; ``finalize``'s m) and each of
+    the n dealers, the t exponents j^k mod q (``_commit_eval_exps``) on the
+    dealer's commitments, then the step's share exponents (two for
+    ``verify_pedersen_shares``, one for ``verify_dealer_shares``, none for
+    ``finalize``), random below 2^255; ``rng`` a numpy Generator.  Bases:
+    random 256-bit stand-ins for the commitments (33rd byte zero)."""
+    from cleisthenes_tpu_torch.ops.modmath import exps_to_bytes
+
+    q = (p - 1) // 2
+    extra = DKG_STEP_EXTRA[step]
+    span = t + extra
+    jk = []
+    for j in range(1, n + 1):
+        e = [1]
+        for _ in range(t - 1):
+            e.append(e[-1] * j % q)
+        jk += e
+    exps = np.empty((n, n, span, 32), np.uint8)
+    exps[:, :, :t] = exps_to_bytes(jk).reshape(n, 1, t, 32)
+    if extra:
+        shares = rng.integers(0, 256, (n, n, extra, 32), dtype=np.uint8)
+        shares[..., 0] &= 0x7F
+        exps[:, :, t:] = shares
+    bases = np.zeros((n * n * span, 33), np.uint8)
+    bases[:, :32] = rng.integers(0, 256, (n * n * span, 32), dtype=np.uint8)
+    return bases, exps.reshape(-1, 32)
+
+
+def sms_of(torch, dev) -> int:
+    """The SM count of ``dev`` (an H100's 132 for the CPU, whose runs
+    only rehearse the card's plan boundary)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+
+
+def pow_edge_rows(np, rnd, p: int, sms: int) -> dict:
+    """K7's untimed batches, each {name: (bases, exponents)} as (B, 33) and
+    (B, 32) uint8 rows that start with the edge rows (bases 0, 1, p - 1,
+    p + 5, 2^264 - 1; exponents 0, 1, q, 2^256 - 1): both plans' boundary
+    (the largest call ``PowSmallPlan`` takes on ``sms`` SMs, and one row
+    more), every exponent zero, every exponent short (below 2^12), rows
+    already in length order (``finalize``'s at n=48, t=16, longest first)
+    and ragged counts (1, 31, 33, 4,099: no multiple of a warp, a block or
+    a team)."""
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+    from cleisthenes_tpu_torch.ops.modmath import exps_to_bytes, ints_to_bytes33
+
+    q = (p - 1) // 2
+    edge_b, edge_e = [0, 1, p - 1, p + 5, 2**264 - 1], [0, 1, q, 2**256 - 1]
+
+    def rows(n, exp_of, edge=True):
+        bs = (edge_b + [rnd.randrange(p) for _ in range(n)])[:n]
+        es = ((edge_e if edge else []) + [exp_of() for _ in range(n)])[:n]
+        return ints_to_bytes33(bs), exps_to_bytes(es)
+
+    small = sms * mx.POW_SMALL_ROWS_PER_SM
+    out = {
+        "small_plan_last": rows(small, lambda: rnd.randrange(q)),
+        "many_plan_first": rows(small + 1, lambda: rnd.randrange(q)),
+        "all_zero": rows(4099, lambda: 0, edge=False),
+        "all_short": rows(20000, lambda: rnd.randrange(1, 1 << 12), edge=False),
+    }
+    b_np, e_np = dkg_step_rows(np, np.random.default_rng(rnd.randrange(2**32)), p, 48, 16,
+                               "finalize")
+    keep = np.argsort(-exp_bit_lengths(np, e_np), kind="stable")
+    out["length_ordered"] = (b_np[keep], e_np[keep])
+    for n in (1, 31, 33, 4099):
+        out[f"B{n}"] = rows(n, lambda: rnd.randrange(q))
+    return out
+
+
 def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
     """The modexp entry points on ``dev`` in the group mod ``p``, each held
     against its plain version and against Python's ``pow`` on a sample.
     When ``timed``: the comb (K9) and the dual pow (K8) at both epochs'
     shapes (``MODEXP_SHAPES``; keys ``pow_grouped``, ``dual_pow`` for
-    N=128 and ``<entry>@n512``), the generic pow (5,504 items) and the
-    Montgomery product (16,384), then both K8 and K9 untimed on the ragged
-    batches (``<entry>@B<n>``); else small, parity only.  Returns {entry
-    point: record}."""
+    N=128 and ``<entry>@n512``), the generic pow (K7, 5,504 items: the
+    decrypt-combine shape) and the Montgomery product (16,384), then both
+    K8 and K9 untimed on the ragged batches (``<entry>@B<n>``) and K7 on
+    ``pow_edge_rows``' batches (``pow@<name>``); else small, parity only.
+    Bounds split each product's instructions by pipe (``mont_bound``).
+    Returns {entry point: record}."""
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
-    from cleisthenes_tpu_torch.csrc.sass_ops import MONT_OPS
     from cleisthenes_tpu_torch.ops import modexp_cuda as mx
     from cleisthenes_tpu_torch.ops.modmath import (
         bytes33_to_ints, exps_to_bytes, ints_to_bytes33,
@@ -894,6 +1078,16 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
             len(u1) * (3 * 33 + 2 * 32),
             lambda: dual_products(np, *arrs),
             lambda i: pow(u1[i], e1[i], p) * pow(u2[i], e2[i], p) % p,
+        )
+
+    def pow_case(b_np, e_np):
+        t = (put(b_np), put(e_np))
+        return (
+            lambda: mx.pow_fused(*t, spec),
+            lambda: mx.pow_fused_plain(*t, spec),
+            len(b_np) * (33 + 32 + 33), lambda: pow_products(np, b_np, e_np),
+            lambda i: pow(int.from_bytes(b_np[i].tobytes(), "little"),
+                          int.from_bytes(e_np[i].tobytes(), "big"), p),
         )
 
     cases = {}  # name: (kernel, plain, bytes, products, pow of item i, plain reps)
@@ -935,6 +1129,8 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
                 comb_inputs(rnd, p, 1, 0, 0)
             cases[f"pow_grouped@B{n}"] = comb_case(*comb) + (0,)
             cases[f"dual_pow@B{n}"] = dual_case(*dual_inputs(rnd, p, n)) + (0,)
+        for name, rows in pow_edge_rows(np, rnd, p, sms_of(torch, dev)).items():
+            cases[f"pow@{name}"] = pow_case(*rows) + (0,)
 
     out = {}
     for name, (kern, plain, nbytes, products, want, reps) in cases.items():
@@ -953,15 +1149,21 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
         sample_ok = all(res[i] == want(i) for i in idx)
         rec = {"equal": equal and sample_ok, "max_abs_err": float(err),
                "launches_per_call": per_call}
+        if name == "pow" or name.startswith("pow@"):
+            rec["plan"] = mx.pow_plan(n, sms_of(torch, dev))
         line = (
             f"kernel {name} p={hex(p)[:10]}.. shape={tuple(got.shape)}: "
             f"equal={rec['equal']} launches_per_call={per_call}"
+            + (f" plan={rec['plan']}" if "plan" in rec else "")
         )
         if timed and reps:
             n_prod = products()
+            if name == "pow":  # the decrypt-combine shape
+                rec["schedule_products"] = schedule_products(np, *pow_np, rec["plan"])
             rec["kernel_ms"] = time_ms(torch, kern, 20)
             rec["plain_ms"] = time_ms(torch, plain, reps)
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, n_prod * MONT_OPS)
+            rec["bound_ms"], rec["bound_by"] = mont_bound(nbytes, n_prod)
+            rec["bound_one_pipe_ms"] = mont_bound_one_pipe(nbytes, n_prod)
             rec["products"] = n_prod
             line += (
                 f" kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']} (median of {reps})"
@@ -1389,7 +1591,6 @@ def dkg_roster_phase(torch, dev, roster=DKG_ROSTER) -> dict:
     import numpy as np
 
     from cleisthenes_tpu_torch.csrc.build import COUNTS
-    from cleisthenes_tpu_torch.csrc.sass_ops import MONT_OPS
     from cleisthenes_tpu_torch.ops import dkg
     from cleisthenes_tpu_torch.ops import modexp_cuda as mx
     from cleisthenes_tpu_torch.ops.modmath import DEFAULT_GROUP, get_engine
@@ -1463,14 +1664,24 @@ def dkg_roster_phase(torch, dev, roster=DKG_ROSTER) -> dict:
             spec = eng._spec
             got = mx.pow_fused(base, exp, spec)
             plain = mx.pow_fused_plain(base, exp, spec)
-            rec["equal"] = bool(torch.equal(got, plain))
+            got_np = got.cpu().numpy()
+            rows = b_np.shape[0]
+            sample = sorted({0, rows - 1} | set(random.Random(rows).sample(range(rows), 40)))
+            rec["equal"] = bool(torch.equal(got, plain)) and all(
+                int.from_bytes(got_np[i].tobytes(), "little")
+                == pow(int.from_bytes(b_np[i].tobytes(), "little"),
+                       int.from_bytes(e_np[i].tobytes(), "big"), gp.p)
+                for i in sample)
             rec["max_abs_err"] = float((got.to(torch.int64) - plain.to(torch.int64)).abs().max())
+            rec["plan"] = mx.pow_plan(rows, sms_of(torch, dev))
             rec["kernel_ms"] = time_ms(torch, lambda: mx.pow_fused(base, exp, spec), 5)
             rec["alone_ms"] = graph_ms(torch, lambda: mx.pow_fused(base, exp, spec), 5)
             rec["plain_ms"] = time_ms(torch, lambda: mx.pow_fused_plain(base, exp, spec), 1)
             rec["products"] = pow_products(np, b_np, e_np)
-            rec["bound_ms"], rec["bound_by"] = bound(b_np.shape[0] * (33 + 32 + 33),
-                                                     rec["products"] * MONT_OPS)
+            rec["schedule_products"] = schedule_products(np, b_np, e_np, rec["plan"])
+            nbytes = rows * (33 + 32 + 33)
+            rec["bound_ms"], rec["bound_by"] = mont_bound(nbytes, rec["products"])
+            rec["bound_one_pipe_ms"] = mont_bound_one_pipe(nbytes, rec["products"])
             rec["x_bound"] = rec["kernel_ms"] / rec["bound_ms"]
             ok = ok and rec["equal"]
         print(f"dkg_roster {name}: ok={ok} " + " ".join(
@@ -1845,7 +2056,8 @@ def main() -> int:
     # K7 at the largest shape of its path: one node's N=128 finalize
     records["pow"] = dict(dkg_steps["finalize"], decrypt_combine_shape={
         k_: phases["modexp"]["pow"][k_]
-        for k_ in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")})
+        for k_ in ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                   "bound_one_pipe_ms", "plan")})
     records["gf65536_apply"] = dict(phases["n512"]["rs16_encode"])
     for rec in records.values():  # the codecs' bound: the lesser of their two
         if "tc_bound_ms" in rec and rec["tc_bound_ms"] < rec["int_bound_ms"]:
@@ -1870,7 +2082,7 @@ def main() -> int:
         })
         if name == "pow":
             kernels[-1].update(launches_by_path=pow_by_path, rows=rec["rows"],
-                               alone_ms=rec["alone_ms"],
+                               alone_ms=rec["alone_ms"], plan=rec["plan"],
                                decrypt_combine_shape=rec["decrypt_combine_shape"])
         elif name == "wide_pow_fused":
             kernels[-1]["launches_dkg_g384"] = dkg_launches["g384"]["kernels"].get(name, 0)

@@ -68,7 +68,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "modexp": {
         "mont_mul": [_P, _P, _P, _LL, _P, _P],
-        "pow_fused": [_P, _P, _P, _LL, _P, _P],
+        "pow_fused": [_P, _P, _P, _P, _LL, _P, _P],
         "dual_pow_fused": [_P, _P, _P, _P, _P, _LL, _P, _P],
         "comb_table": [_P, _P, _LL, _P, _P],
         "comb_apply": [_P, _P, _P, _P, _LL, _P, _P],

@@ -1,7 +1,8 @@
 // Batched Montgomery modular exponentiation on Hopper (sm_90a).
 //
 // Replaces the TPU kernels of cleisthenes_tpu/ops/modmath.py:
-//   K7  _pow_fused (:551)          pow_fused: b^e mod p, square-and-multiply
+//   K7  _pow_fused (:551)          pow_fused: b^e mod p, a fixed window per
+//                                  warp over rows ordered by exponent length
 //   K8  _dual_pow_fused (:592)     dual_pow_fused: u1^e1 * u2^e2 mod p, a
 //                                  fixed window per base over one chain of
 //                                  squarings
@@ -34,10 +35,12 @@
 //
 // What bounds each kernel on the H100.  An exponentiation is hundreds of
 // Montgomery products on ~100 bytes of I/O, so the work is 32-bit integer
-// instructions (csrc/sass_ops.py counts a one-lane product's: 431) at the
-// INT32 rate (132 SMs x 64 lanes x 1.98 GHz; the CUDA C++ Programming
-// Guide's arithmetic-throughput table), never bytes; where too few products
-// run at once, the latency of a product's chain of dependent instructions.
+// instructions, never bytes: csrc/sass_ops.py counts a one-lane product's
+// 431, 212 on the INT32 pipe and 202 IMADs on the FMA pipe (64 lanes an SM
+// each, the CUDA C++ Programming Guide's arithmetic-throughput table), so
+// the issue rate of one instruction a clock per SM sub-partition binds;
+// where too few products run at once, the latency of a product's chain of
+// dependent instructions.
 // - K8 at a call of many waves (the N=512 epoch's 350,208 rows) is bound by
 //   issue: DualPlan keeps a lane a row with its base tables (2^WD entries
 //   each, 3-bit window) in shared memory, six blocks of 64 an SM; a warp of
@@ -58,13 +61,34 @@
 //   all fit the 50 MB L2 at N=128 (257 x 148 KiB); at N=512 (1,025 tables)
 //   a block's consecutive exponents share a base, so the tables in use at
 //   once stay in L2.
-// - K7 and K10 keep the first design's schedule, one thread a row (K7 the
-//   binary method), on the one-lane product.
+// - K7 is bound like K8: by issue at a call of many waves, by a row's chain
+//   of dependent products at a call of one wave.  Its callers' exponents
+//   are of every length (the DKG's j^k mod q: 1 for k = 0, 2^k for j = 2,
+//   full length once j^k wraps q), and a warp-uniform loop pays for its
+//   longest row, so at a call of many waves (PowPlan: a lane a row, blocks
+//   sized for residency) the entry point first orders the rows by exponent
+//   bit length, longest first (a counting sort: keys and histogram, then a
+//   scatter of row indices; pow_keys_kernel, pow_scatter_kernel), and the
+//   pow kernel reads its rows through that permutation and writes each
+//   result to its own row.  A call that fits one wave of PowSmallPlan's
+//   blocks (teams of lanes, blocks of one warp spread over every SM, a
+//   shorter chain a product) takes as long as its longest row whatever
+//   the order, so it skips the sort (modexp_sweep.py: the sort's passes
+//   cost it 0.01 ms at the 5,504-row decrypt combine).  A warp takes the
+//   window W in 1..Plan::W that makes the fewest products for its longest
+//   exponent (pow_window: 1 bit for the shortest warps), builds its table
+//   b^0 .. b^(2^W - 1) in shared memory and runs W squarings a digit from
+//   its top digit, with a table product unless the whole warp's digit is
+//   zero; a warp of zero exponents makes none of them.
+// - K10 keeps the first design's schedule, one thread a row, on the
+//   one-lane product.
 // ptxas's registers and spills per kernel are printed by csrc/sass_ops.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <mutex>
 
 #include "mont_team.cuh"
 
@@ -85,8 +109,8 @@ struct MontSpec {
 };
 
 // The team product (csrc/mont_team.cuh, 8 words) serves every kernel here:
-// with one lane (Plan1) K7 and K10 below, one thread a row, and K8 and K9
-// with their plans.
+// with one lane (Plan1) K10 below, one thread a row, and K7, K8 and K9 with
+// their plans.
 using Plan1 = Plan<8, 32, 1, 1, 1, kThreads, 1>;
 
 // This lane's K words of a staged 33-byte little-endian value row (its low
@@ -140,51 +164,202 @@ __global__ void mont_mul_kernel(const uint8_t* __restrict__ a,
   store_value(out + i * kValBytes, x);
 }
 
-// K7: square-and-multiply over the exponent's bits.  Every lane of a warp
-// runs to the end (team_to_mont votes across the warp): a lane past the
-// last row repeats it and stores nothing.
-__global__ void pow_kernel(const uint8_t* __restrict__ base,
-                           const uint8_t* __restrict__ exp,
-                           uint8_t* __restrict__ out, long long n,
-                           const __grid_constant__ MontSpec s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long row = i < n ? i : n - 1;
-  const Lane<Plan1> L = make_lane<Plan1>(s);
-  uint32_t bm[kWords], acc[kWords], m[kWords];
-  const uint32_t h = value_words<Plan1>(base + row * kValBytes, 0, bm);
-  team_to_mont<Plan1>(bm, bm, h, s, L);
-  spec_slice<Plan1>(s.one, 0, acc);
-  const uint8_t* e = exp + row * kExpBytes;
-#pragma unroll 1
-  for (int byte = 0; byte < kExpBytes; ++byte) {
-    const uint32_t v = e[byte];
-#pragma unroll 1
-    for (int bit = 7; bit >= 0; --bit) {
-      team_prod<Plan1>(acc, acc, acc, L);
-      const bool set = (v >> bit) & 1u;
-#pragma unroll
-      for (int j = 0; j < kWords; ++j) m[j] = set ? bm[j] : s.one[j];
-      team_prod<Plan1>(acc, acc, m, L);
-    }
-  }
-  unit_slice<Plan1>(0, m);
-  team_prod<Plan1>(acc, acc, m, L);
-  if (i < n) store_value(out + i * kValBytes, acc);
-}
-
-// K8's and K9's plans: a plan's VB is the 32-byte exponent row (a value
-// row adds the 33rd byte that team_to_mont folds).  The plans (csrc/sass_ops.py, modexp_sweep.py and the tests read them from
-// these lines): Plan<NW, VB, T, W, WD, THREADS, MIN_BLOCKS>.  K8: a team of
-// T lanes a row and a table of 2^WD entries per base, DualSmallPlan for a
-// call that fits one wave of its resident blocks, DualPlan for a longer
-// one (dual_pow_fused); K9: the chain's team T, the comb's width W (its
-// table T[k][j] = base^(j 2^(W k)) has ceil(256 / W) rows of 2^W entries)
-// and comb_apply's block.
+// K7's, K8's and K9's plans: a plan's VB is the 32-byte exponent row (a
+// value row adds the 33rd byte that team_to_mont folds).  The plans
+// (csrc/sass_ops.py, modexp_sweep.py and the tests read them from these
+// lines): Plan<NW, VB, T, W, WD, THREADS, MIN_BLOCKS>.  K7: a team of T
+// lanes a row and a table of up to 2^W entries (a warp picks its window in
+// 1..W), PowSmallPlan for a call that fits one wave of its resident
+// blocks, PowPlan (rows ordered by length) for a longer one (pow_fused;
+// modexp_sweep.py times the others); K8: a team of T lanes a row
+// and a table of 2^WD entries per base, DualSmallPlan and DualPlan alike
+// (dual_pow_fused); K9: the chain's team T, the comb's width W (its table
+// T[k][j] = base^(j 2^(W k)) has ceil(256 / W) rows of 2^W entries) and
+// comb_apply's block.
+using PowPlan = Plan<8, 32, 1, 4, 4, 64, 6>;
+using PowSmallPlan = Plan<8, 32, 4, 4, 4, 32, 16>;
 using DualPlan = Plan<8, 32, 1, 3, 3, 64, 6>;
 using DualSmallPlan = Plan<8, 32, 1, 4, 4, 32, 6>;
 using CombPlan = Plan<8, 32, 4, 7, 7, 128, 4>;
 
 __host__ __device__ constexpr int comb_rows(int w) { return (8 * kExpBytes + w - 1) / w; }
+
+// K7's row order.  A row's key is 256 less its exponent's bit length, so
+// key 0 holds the longest rows and key 256 the zero exponents; the
+// counting sort's workspace (int32, after the n-entry permutation) holds
+// the histogram of keys, each key's cursor and the blocks' ticket.
+constexpr int kKeys = 8 * kExpBytes + 1;
+constexpr int kSortWords = 515;
+static_assert(kSortWords == 2 * kKeys + 1, "histogram, cursors, ticket");
+constexpr int kSortThreads = 512;
+constexpr int kSortBlocks = 264;  // a grid of two blocks an SM
+static_assert(kSortThreads >= kKeys, "one key a thread in the scan");
+
+// The bit length of a 32-byte big-endian exponent row (0 for zero).
+__device__ __forceinline__ int exp_bits(const uint8_t* e) {
+  int j = 0;
+  while (j < kExpBytes && e[j] == 0) ++j;
+  return j == kExpBytes ? 0 : 8 * (kExpBytes - 1 - j) + 32 - __clz((int)e[j]);
+}
+
+// Pass 1: the keys' histogram (a block's in shared memory, added to the
+// workspace's), then in the block that finishes last the cursors, an
+// exclusive scan of the histogram: key k's rows go to [cursor[k],
+// cursor[k + 1]).
+__global__ void __launch_bounds__(kSortThreads)
+pow_keys_kernel(const uint8_t* __restrict__ exp, long long n, uint32_t* ws) {
+  __shared__ uint32_t hist[kKeys];
+  __shared__ uint32_t warp_sum[kSortThreads / 32];
+  __shared__ bool last;
+  for (int k = threadIdx.x; k < kKeys; k += kSortThreads) hist[k] = 0;
+  __syncthreads();
+  for (long long i = (long long)blockIdx.x * kSortThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kSortThreads)
+    atomicAdd(&hist[8 * kExpBytes - exp_bits(exp + i * kExpBytes)], 1u);
+  __syncthreads();
+  for (int k = threadIdx.x; k < kKeys; k += kSortThreads)
+    if (hist[k]) atomicAdd(&ws[k], hist[k]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&ws[2 * kKeys], 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+  const uint32_t v = threadIdx.x < kKeys ? __ldcg(&ws[threadIdx.x]) : 0u;
+  uint32_t x = v;  // inclusive scan within the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= (unsigned)o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t t = lane < kSortThreads / 32 ? warp_sum[lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, t, o);
+      if (lane >= (unsigned)o) t += y;
+    }
+    if (lane < kSortThreads / 32) warp_sum[lane] = t;
+  }
+  __syncthreads();
+  if (threadIdx.x < kKeys) ws[kKeys + threadIdx.x] = (warp ? warp_sum[warp - 1] : 0u) + x - v;
+}
+
+// Pass 2: every row's index into its key's span of the permutation; the
+// lanes of a warp that share a key take their places with one atomic.
+__global__ void __launch_bounds__(kSortThreads)
+pow_scatter_kernel(const uint8_t* __restrict__ exp, long long n, uint32_t* cursor,
+                   int32_t* __restrict__ perm) {
+  const unsigned lane = threadIdx.x & 31u;
+  for (long long w0 = (long long)blockIdx.x * kSortThreads + (threadIdx.x & ~31u); w0 < n;
+       w0 += (long long)gridDim.x * kSortThreads) {
+    const long long i = w0 + lane;
+    const unsigned active = __ballot_sync(kFull, i < n);
+    if (i < n) {
+      const int key = 8 * kExpBytes - exp_bits(exp + i * kExpBytes);
+      const unsigned peers = __match_any_sync(active, key);
+      const int leader = __ffs(peers) - 1;
+      uint32_t at = 0;
+      if ((int)lane == leader) at = atomicAdd(&cursor[key], (uint32_t)__popc(peers));
+      at = __shfl_sync(peers, at, leader);
+      perm[at + __popc(peers & ((1u << lane) - 1u))] = (int32_t)i;
+    }
+  }
+}
+
+// The window of a warp whose longest exponent has `bits` bits: the w in
+// 1..wmax with the fewest products beyond the conversions, its table's
+// 2^w - 2 and, for each digit after the top one, w squarings and a table
+// product (the lesser w on a tie).
+__host__ __device__ constexpr int pow_window(int bits, int wmax) {
+  int best = 1, least = 0x7FFFFFFF;
+  for (int w = 1; w <= wmax; ++w) {
+    const int cost = (1 << w) - 2 + ((bits + w - 1) / w - 1) * (w + 1);
+    if (cost < least) {
+      least = cost;
+      best = w;
+    }
+  }
+  return best;
+}
+
+// The w-bit digit d (0 = least significant) of a staged exponent row, for
+// a window w chosen at run time.
+__device__ __forceinline__ uint32_t digit_w(const uint8_t* e, int d, int w) {
+  const int bit = d * w;
+  const int byte = bit >> 3;
+  uint32_t x = e[kExpBytes - 1 - byte];
+  if (byte + 1 < kExpBytes) x |= (uint32_t)e[kExpBytes - 2 - byte] << 8;
+  return (x >> (bit & 7)) & ((1u << w) - 1u);
+}
+
+// Shared memory of a pow launch: the teams' staged exponent rows, then a
+// table of 2^W entries (K words a lane, lane index fastest).
+template <class P>
+constexpr int pow_smem() {
+  return round16(P::TEAMS * kExpBytes) + (1 << P::W) * P::K * P::THREADS * 4;
+}
+
+// K7: out[r] = base[r]^exp[r] mod p, a team of P::T lanes a row, the rows
+// read through `perm` (none: in order).  A team past the last row repeats
+// the last one and stores nothing: every lane of the warp runs the votes.
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
+pow_kernel(const uint8_t* __restrict__ base, const uint8_t* __restrict__ exp,
+           const int32_t* __restrict__ perm, uint8_t* __restrict__ out, long long n,
+           const __grid_constant__ MontSpec s) {
+  constexpr int K = P::K;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + round16(P::TEAMS * kExpBytes));
+  const Lane<P> L = make_lane<P>(s);
+  const int team = threadIdx.x / P::T;
+  const long long i = (long long)blockIdx.x * P::TEAMS + team;
+  const long long at = i < n ? i : n - 1;
+  const long long row = perm ? (long long)perm[at] : at;
+  uint8_t* er = smem + team * kExpBytes;
+  const uint8_t* eg = exp + row * kExpBytes;
+  for (int b = L.tl; b < kExpBytes; b += P::T) er[b] = eg[b];
+  __syncwarp();
+  const int bits = (int)__reduce_max_sync(kFull, (unsigned)exp_bits(er));
+  uint32_t acc[K], y[K];
+  spec_slice<P>(s.one, L.tl, acc);
+  if (bits > 0) {
+    const int w = pow_window(bits, P::W);
+    const int top = (bits - 1) / w;
+    uint32_t x[K];
+    const uint32_t h = value_words<P>(base + row * kValBytes, L.tl, x);
+    team_to_mont<P>(x, x, h, s, L);
+    store_entry<P>(tab, 0, acc);
+    store_entry<P>(tab, 1, x);
+    copy_k<P>(y, x);
+#pragma unroll 1
+    for (int e = 2; e < (1 << w); ++e) {
+      team_prod<P>(y, y, x, L);
+      store_entry<P>(tab, e, y);
+    }
+    load_entry<P>(tab, (int)digit_w(er, top, w), acc);
+#pragma unroll 1
+    for (int d = top - 1; d >= 0; --d) {
+#pragma unroll 1
+      for (int q = 0; q < w; ++q) team_prod<P>(acc, acc, acc, L);
+      const uint32_t dg = digit_w(er, d, w);
+      if (__any_sync(kFull, dg != 0)) {
+        load_entry<P>(tab, (int)dg, y);
+        team_prod<P>(acc, acc, y, L);
+      }
+    }
+  }
+  unit_slice<P>(L.tl, y);
+  team_prod<P>(acc, acc, y, L);
+  if (i < n) {
+    uint8_t* o = out + row * kValBytes;
+    row_bytes<P>(o, L.tl, acc);
+    if (L.tl == 0) o[kExpBytes] = 0;
+  }
+}
 
 // Shared memory of a dual-pow launch: both staged exponent rows, then a
 // table of 2^WD entries per base (K words a lane, lane index fastest).  The
@@ -450,6 +625,53 @@ int launch_dual(const void* u1, const void* e1, const void* u2, const void* e2,
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxDevices = 64;
+
+// cudaFuncSetAttribute once a device for a kernel's dynamic shared memory
+// (a call inside a CUDA graph's capture then makes no such call).
+template <class P>
+cudaError_t pow_smem_ready(int dev) {
+  static std::mutex mu;
+  static bool ready[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready[dev]) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      pow_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, pow_smem<P>());
+  ready[dev] = rc == cudaSuccess;
+  return rc;
+}
+
+// K7 under plan P on device `dev`: with `order`, the counting sort into
+// `ws` (n + kSortWords int32), then the pow through its permutation.
+template <class P>
+int launch_pow(const void* base, const void* exp, void* out, void* ws, long long n,
+               const void* spec, void* stream, int dev, bool order) {
+  MontSpec s;
+  if (n < 1 || n > 0x7FFFFFFFll || !spec_from(spec, &s) || (order && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = pow_smem<P>();
+  static_assert(smem_fits<P>(smem), "MIN_BLOCKS blocks' shared memory fits an SM");
+  cudaError_t rc = pow_smem_ready<P>(dev);
+  if (rc != cudaSuccess) return (int)rc;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* e = (const uint8_t*)exp;
+  int32_t* perm = nullptr;
+  if (order) {
+    perm = (int32_t*)ws;
+    uint32_t* sort = (uint32_t*)(perm + n);
+    rc = cudaMemsetAsync(sort, 0, kSortWords * sizeof(uint32_t), st);
+    if (rc != cudaSuccess) return (int)rc;
+    long long blocks = (n + kSortThreads - 1) / kSortThreads;
+    if (blocks > kSortBlocks) blocks = kSortBlocks;
+    pow_keys_kernel<<<(unsigned)blocks, kSortThreads, 0, st>>>(e, n, sort);
+    pow_scatter_kernel<<<(unsigned)blocks, kSortThreads, 0, st>>>(e, n, sort + kKeys, perm);
+  }
+  pow_kernel<P><<<(unsigned)((n + P::TEAMS - 1) / P::TEAMS), P::THREADS, smem, st>>>(
+      (const uint8_t*)base, e, perm, (uint8_t*)out, n, s);
+  return (int)cudaGetLastError();
+}
+
 template <class P>
 int launch_comb_table(const void* bases, void* table, long long n_rows,
                       const void* spec, void* stream) {
@@ -491,14 +713,22 @@ extern "C" int mont_mul(const void* a, const void* b, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// out[i] = base[i]^exp[i] mod p (base in [0, 2^264)).
-extern "C" int pow_fused(const void* base, const void* exp, void* out,
+// out[i] = base[i]^exp[i] mod p (base in [0, 2^264)), n < 2^31.  A call
+// whose rows PowSmallPlan's resident blocks hold at once runs at the
+// latency of a row, in teams of lanes over every SM, in the rows' own
+// order (`ws` unused, may be null); a longer call runs at the issue rate,
+// a lane a row (PowPlan), on rows first ordered by exponent length in `ws`,
+// scratch of n + 515 int32 (kSortWords) on the card.
+extern "C" int pow_fused(const void* base, const void* exp, void* out, void* ws,
                          long long n, const void* spec, void* stream) {
-  MontSpec s;
-  if (!grid_ok(n) || !spec_from(spec, &s)) return (int)cudaErrorInvalidValue;
-  pow_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)base, (const uint8_t*)exp, (uint8_t*)out, n, s);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (n <= (long long)sms * PowSmallPlan::MIN_BLOCKS * PowSmallPlan::TEAMS)
+    return launch_pow<PowSmallPlan>(base, exp, out, ws, n, spec, stream, dev, false);
+  return launch_pow<PowPlan>(base, exp, out, ws, n, spec, stream, dev, true);
 }
 
 // out[i] = u1[i]^e1[i] * u2[i]^e2[i] mod p.  A call whose rows

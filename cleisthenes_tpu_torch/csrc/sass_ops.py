@@ -34,9 +34,13 @@ the script exits 1 when a probe now counts fewer than they record.
   wide probes below are.  The script prints ``mont_team_prod`` (its ALU
   instructions per lane and per team) and ``mont_ops``:
   ``MONT_FIRST_OPS`` (the first design's one-thread product, 429),
-  ``MONT_TEAM_OPS`` and ``MONT_OPS``, the lesser of the two, which the
-  256-bit bounds in ``chip_smoke.py`` use; it exits 1 when the team
-  product now counts fewer instructions than ``MONT_TEAM_OPS``;
+  ``MONT_TEAM_OPS`` and ``MONT_OPS``, the lesser of the two (the 256-bit
+  bounds' count before they were split by pipe); it exits 1 when the
+  team product now counts fewer instructions than ``MONT_TEAM_OPS``.
+  Beside them, ``mont_pipe_ops``: the product's instructions split by pipe
+  (``pipe_split``, ``fma_pipe``: INT32 pipe, FMA pipe, all issued), which
+  ``chip_smoke.py`` bounds 256-bit products by (``MONT_PIPE_OPS``; the
+  script exits 1 when a pipe's count falls below it);
 - ``probe_team_prod_NW`` for NW = 12, 25 and 66
   (``csrc/modexp_wide.cu``): one ``team_prod`` of the family's plan on
   one lane's words of the operands and of p read from memory, its loop
@@ -187,6 +191,10 @@ _WARP = {"SHFL", "VOTE", "REDUX"}
 # their own; an opcode not listed (VIADD among them) counts only as issued.
 INT32_PIPE = {"IADD3", "IABS", "IMNMX", "ISETP", "LEA", "LOP3", "PLOP3", "PRMT", "SEL",
               "SHF", "SGXT", "BMSK"}
+# opcodes that issue on the FMA pipe: the integer multiplies (IMAD and its
+# forms .WIDE, .HI, .X, .SHL, .IADD, which ``count`` folds into IMAD; not
+# IMAD.MOV, a move) and IMUL
+FMA_PIPE = {"IMAD", "IMUL"}
 # SHA-256's 32-bit instructions as (INT32 pipe, issued): one compression of
 # words that do not fold (``probe_compress``: 672 SHF, 352 LOP3 and 241
 # IADD3 on the INT32 pipe, 118 IMAD on the FMA pipe) and the two
@@ -211,8 +219,16 @@ WIDE_BOUND_OPS = {nw: min(WIDE_MONT_OPS[nw], WIDE_TEAM_OPS[nw]) for nw in WIDE_M
 # (``probe_team_prod_8``, per team) ...
 MONT_FIRST_OPS = 429
 MONT_TEAM_OPS = 431
-# ... and the count chip_smoke.py's 256-bit bounds use: the lesser of the two.
+# ... and the lesser of the two, the count the 256-bit bounds used before
+# they were split by pipe.
 MONT_OPS = min(MONT_FIRST_OPS, MONT_TEAM_OPS)
+# The team product of K8's plan (``probe_team_prod_8``, one lane) by pipe:
+# (INT32 pipe, FMA pipe, all issued): 187 IADD3, 16 SHF, 8 SEL and an
+# ISETP on the INT32 pipe, 202 IMAD (.WIDE, .X, .HI) on the FMA pipe, and
+# 17 HFMA2 moves besides.  chip_smoke.py bounds a 256-bit product by the
+# largest of INT32-pipe / 16.7 T/s, FMA-pipe / 16.7 T/s and issued /
+# 33.4 T/s: the issued count binds.
+MONT_PIPE_OPS = (212, 202, 431)
 # address, opcode and operands of one SASS line
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)")
 
@@ -260,6 +276,12 @@ def pipe_split(hist: Dict[str, int]):
     histogram from ``count``."""
     return (sum(n for op, n in hist.items() if op in INT32_PIPE),
             sum(n for op, n in hist.items() if op not in _NOT_ALU))
+
+
+def fma_pipe(hist: Dict[str, int]) -> int:
+    """Instructions of an opcode histogram from ``count`` that issue on the
+    FMA pipe (``FMA_PIPE``)."""
+    return sum(n for op, n in hist.items() if op in FMA_PIPE)
 
 
 def count(sass: str) -> Dict[str, Dict[str, int]]:
@@ -360,6 +382,15 @@ def main() -> int:
     if lane * t < MONT_TEAM_OPS:
         print("sass_ops: MONT_TEAM_OPS is above the measured count")
         return 1
+    hist = result["probe_team_prod_8"]["by_opcode"]
+    i32, issued = pipe_split(hist)
+    mont_pipe = (i32, fma_pipe(hist), issued)
+    print("mont_pipe_ops " + json.dumps({
+        "int32_pipe": mont_pipe[0], "fma_pipe": mont_pipe[1], "issued": mont_pipe[2],
+        "MONT_PIPE_OPS": MONT_PIPE_OPS}))
+    if any(m < r for m, r in zip(mont_pipe, MONT_PIPE_OPS)):
+        print("sass_ops: MONT_PIPE_OPS is above the measured count")
+        return 1
     return 0
 
 
@@ -381,7 +412,7 @@ _MODEXP_PLAN = re.compile(r"using (\w+Plan) = Plan<([\d,\s]+)>;")
 
 
 def modexp_plans() -> Dict[str, Dict[str, int]]:
-    """{"DualPlan": plan, "CombPlan": plan} as csrc/modexp.cu declares
+    """{"PowPlan": plan, ..., "CombPlan": plan} as csrc/modexp.cu declares
     them: the template's arguments by name (``_PLAN_FIELDS``)."""
     src = (_CSRC / "modexp.cu").read_text()
     return {
@@ -393,13 +424,14 @@ def modexp_plans() -> Dict[str, Dict[str, int]]:
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _USED = re.compile(r"Used (\d+) registers")
-_KERNEL = re.compile(r"(dual_pow|comb_table|comb_apply|mont_mul|pow)_kernel")
+_KERNEL = re.compile(r"(dual_pow|comb_table|comb_apply|mont_mul|pow_keys|pow_scatter|pow)_kernel")
 
 
 def ptxas_summary(log: str, whole_plan: bool = False) -> Dict[str, Dict[str, int]]:
     """{"<kernel>@<NW>": registers, stack and spill bytes} from ``ptxas
     -v`` output of csrc/modexp_wide.cu's or csrc/modexp.cu's kernels
-    (kernel: pow, dual, comb_table, comb_apply or mont_mul); with
+    (kernel: pow, pow_keys, pow_scatter, dual, comb_table, comb_apply or
+    mont_mul); with
     ``whole_plan`` the key names every argument of the kernel's plan
     ("dual@8,32,1,4,4,32,6")."""
     out: Dict[str, Dict[str, int]] = {}

@@ -5,7 +5,9 @@ The counterpart of the reference's device functions in
 with its plain PyTorch version beside it:
 
 - ``mont_mul_batch``     K10, ``mont_mul_batch`` (modmath.py:504)
-- ``pow_fused``          K7,  ``_pow_fused`` (:551)
+- ``pow_fused``          K7,  ``_pow_fused`` (:551): rows ordered by
+                         exponent length on the card, then a window per
+                         warp (``pow_plan`` names the plan a call takes)
 - ``dual_pow_fused``     K8,  ``_dual_pow_fused`` (:592)
 - ``pow_fused_grouped``  K9,  ``_pow_fused_grouped`` (:639): the
                          fixed-base comb of width ``COMB_WIDTH``, two
@@ -70,6 +72,16 @@ _L = 17
 _MASK = (1 << _W) - 1
 COMB_ROWS = 64  # nibble positions of a 256-bit exponent (the plain comb)
 COMB_COLS = 16  # nibble values
+# K7's counting sort (csrc/modexp.cu ``kSortWords``): the key histogram and
+# cursors (257 bit lengths each) and a ticket, after the B-row permutation
+POW_SORT_WORDS = 515
+# rows an SM of PowSmallPlan holds (its MIN_BLOCKS x TEAMS): ``pow_fused``
+# takes that plan for a call of at most this many rows an SM
+POW_SMALL_ROWS_PER_SM = 16 * 8
+# whether a K7 plan orders its rows by exponent length first (and so takes
+# the workspace): a call of one wave lasts as long as its longest row in
+# any order
+POW_ORDERED = {"PowPlan": True, "PowSmallPlan": False}
 # The kernels' comb (csrc/modexp.cu ``CombPlan``): digits of COMB_WIDTH bits,
 # so a base's table holds ceil(256 / COMB_WIDTH) rows of 2^COMB_WIDTH entries
 COMB_WIDTH = 7
@@ -441,18 +453,39 @@ def mont_mul_batch(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Te
     return out
 
 
+def pow_plan(n: int, sms: int) -> str:
+    """The plan ``pow_fused`` runs ``n`` rows under on a card of ``sms``
+    SMs (csrc/modexp.cu): ``PowSmallPlan`` for a call that one wave of its
+    resident blocks holds, ``PowPlan`` for a longer one."""
+    return "PowSmallPlan" if n <= sms * POW_SMALL_ROWS_PER_SM else "PowPlan"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def pow_fused(base: torch.Tensor, exp: torch.Tensor, spec: MontSpec) -> torch.Tensor:
     """K7: (B, 33) bases in [0, 2^264), (B, 32) exponents -> (B, 33)
-    base^exp mod p."""
+    base^exp mod p, B < 2^31.  On the card a call of ``PowPlan`` orders
+    its rows by exponent length in a workspace of B + ``POW_SORT_WORDS``
+    int32 taken from PyTorch's allocator (one entry point: one launch
+    count)."""
     _check_bytes("pow_fused base", base, (-1, 33))
     _check_bytes("pow_fused exp", exp, (base.shape[0], 32))
     if not _on_cuda(base, exp):
         return pow_fused_plain(base, exp, spec)
+    b = base.shape[0]
+    if b >= 1 << 31:
+        raise ValueError(f"pow_fused: {b} rows, the kernel takes fewer than 2^31")
     out = torch.empty_like(base)
-    if base.shape[0]:
+    if b:
+        ws = None
+        if POW_ORDERED[pow_plan(b, _sm_count(base.get_device()))]:
+            ws = torch.empty(b + POW_SORT_WORDS, dtype=torch.int32, device=base.device)
         _kb.launch(
             "modexp", "pow_fused", ("pow",), base, base.data_ptr(),
-            exp.data_ptr(), out.data_ptr(), base.shape[0],
+            exp.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b,
             spec.words.ctypes.data,
         )
     return out
@@ -580,6 +613,9 @@ __all__ = [
     "COMB_WIDTH",
     "KERNEL_R_BITS",
     "MontSpec",
+    "POW_ORDERED",
+    "POW_SMALL_ROWS_PER_SM",
+    "POW_SORT_WORDS",
     "comb_table_plain",
     "dual_pow_fused",
     "dual_pow_fused_plain",
@@ -591,6 +627,7 @@ __all__ = [
     "pow_fused_grouped",
     "pow_fused_grouped_plain",
     "pow_fused_plain",
+    "pow_plan",
     "WIDE_WORDS",
     "WideSpec",
     "wide_dual_pow_fused",

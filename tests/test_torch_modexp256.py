@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 
 import chip_smoke as cs
-from cleisthenes_tpu_torch.csrc.sass_ops import MONT_FIRST_OPS, MONT_OPS, MONT_TEAM_OPS, modexp_plans
+from cleisthenes_tpu_torch.csrc.sass_ops import (
+    MONT_FIRST_OPS, MONT_OPS, MONT_PIPE_OPS, MONT_TEAM_OPS, modexp_plans,
+)
 from cleisthenes_tpu_torch.ops import modexp_cuda as mx
 from cleisthenes_tpu_torch.ops import modmath as mm
 
@@ -84,11 +86,11 @@ def mont(a: int, b: int, p: int) -> int:
 
 
 def test_plans_match_kernel_source_and_wrapper():
-    """csrc/modexp.cu declares the three plans of the 8-word family
-    (32-byte exponent rows); the comb's width is the wrapper's
-    ``COMB_WIDTH``, so the table the wrapper allocates is the one the
-    kernels index."""
-    assert sorted(PLANS) == ["CombPlan", "DualPlan", "DualSmallPlan"]
+    """csrc/modexp.cu declares the five plans of the 8-word family
+    (32-byte exponent rows; K7's two are held in tests/test_torch_pow256.py);
+    the comb's width is the wrapper's ``COMB_WIDTH``, so the table the
+    wrapper allocates is the one the kernels index."""
+    assert sorted(PLANS) == ["CombPlan", "DualPlan", "DualSmallPlan", "PowPlan", "PowSmallPlan"]
     for plan in PLANS.values():
         assert plan["nw"] == 8 and plan["val_bytes"] == 32
         assert plan["window"] == plan["dual_window"]
@@ -114,7 +116,7 @@ def test_dual_plans_split_the_epochs_calls():
     assert per_sm["DualPlan"] > per_sm["DualSmallPlan"]
 
 
-@pytest.mark.parametrize("name", DUALS + ["CombPlan"])
+@pytest.mark.parametrize("name", DUALS + ["CombPlan", "PowPlan", "PowSmallPlan"])
 def test_plan_is_whole_warps_of_teams(name):
     plan = PLANS[name]
     t = plan["team"]
@@ -376,8 +378,24 @@ def test_least_comb_counts_the_cheapest_width_per_base(seed):
 def test_mont_ops_is_the_lesser_count():
     """The 256-bit bounds take the fewest instructions a product has been
     seen to need: the lesser of the first design's and the team
-    product's SASS counts (csrc/sass_ops.py checks both on the card)."""
+    product's SASS counts (csrc/sass_ops.py checks both on the card).
+    Split by pipe (``MONT_PIPE_OPS``: INT32 pipe, FMA pipe, issued), the
+    team product's issued instructions are its ALU count, the two pipes
+    hold no more than those, and the bound a product takes, the largest of
+    each pipe's count over its rate and the issued over the issue rate, is
+    never above the one-pipe bound of ``MONT_OPS`` at the INT32 rate."""
     assert MONT_OPS == min(MONT_FIRST_OPS, MONT_TEAM_OPS) <= 429
+    i32, fma, issued = MONT_PIPE_OPS
+    assert issued == MONT_TEAM_OPS
+    assert i32 > 0 and fma > 0 and i32 + fma <= issued
+    per_product = max(i32 / cs.INT32_OPS_PER_S, fma / cs.FMA_INT_OPS_PER_S,
+                      issued / cs.ISSUE_OPS_PER_S)
+    assert per_product <= MONT_OPS / cs.INT32_OPS_PER_S
+    products = 10**6
+    ms, by = cs.mont_bound(0, products)
+    assert by == "operations" and ms == pytest.approx(products * per_product * 1e3)
+    assert cs.mont_bound_one_pipe(0, products) == pytest.approx(
+        products * MONT_OPS / cs.INT32_OPS_PER_S * 1e3)
 
 
 def test_engine_sends_lagrange_rows_after_cp_rows(monkeypatch):
