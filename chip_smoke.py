@@ -93,7 +93,27 @@ before printing any result.  It prints, in order:
    through ``combine_shares_batch(..., backend='cuda')`` — the unfused
    decrypt branch, one generic-pow dispatch — must give the values the
    epoch's fused dispatch left in the combine memo;
-5. after the three paths, the DKG path (ops/dkg.py) and the share
+5. after the three lockstep paths, the asynchronous plane's path
+   (``async_phase``): ``SimulatedCluster(config=Config(n=64,
+   batch_size=10000, seed=99), key_seed=77)`` with its defaults (the
+   'cuda' backend), N HoneyBadger state machines over the in-process
+   channel transport with one shared ``CryptoHub`` (BASELINE.json
+   configs[2], in ``bench.py``'s ``measure_protocol`` arrangement): one
+   warm-up and 2 measured epochs, each 10,000 random 64-byte
+   transactions kicked by ``start_epoch`` on every node (a kick settles
+   two consensus epochs: 156 transactions a node, then the remainder),
+   which must commit on every node alike, each exactly once, on the
+   card's modexp engines, launching K1 and K5 (each node's propose), K6
+   and K3 (the hub's waves), K8 and K9 and nothing of ``OFF_PATH``; a
+   twin on the 'cpu' backend commits byte-identical batches for the
+   warm-up and the first measured epoch.  It prints each epoch's wall
+   seconds, node 0's two frontiers, tx/s, the hub's stats and wave
+   widths by kind, launches by kernel per epoch, and the hub's flush
+   seconds split into the modexp engines' device leg, their packing and
+   host Python; then holds the six kernels to their plain versions and
+   times them at the path's shapes (K1 and K5 at the B=1 propose call,
+   the others at their median wave) with their bounds;
+6. after that, the DKG path (ops/dkg.py) and the share
    phase, each with the launch counts set to zero just before and read
    just after: ``run_dkg(n=32, threshold=11)`` on the card with all four
    fault knobs on distinct dealers and receivers, and
@@ -114,8 +134,10 @@ before printing any result.  It prints, in order:
    ``verify_dec_shares`` / ``verify_shares_batch`` (K8) with one tampered
    share, against the 'cpu' arm's shares, verdicts, plaintext and coin
    bits;
-6. the seconds the run took after the build, the ``{"kernels": [...]}``
-   JSON line (K1-K12; ``OFF_PATH``'s kernels, mont_mul and sha256_rows,
+7. the seconds the run took after the build, the ``{"kernels": [...]}``
+   JSON line (K1-K12, each with its launches per epoch on the async
+   path and, for those six, its ``async_n64`` record; ``OFF_PATH``'s
+   kernels, mont_mul and sha256_rows,
    which no path launches, carry the paths' 0 with their kernel-phase
    launches and the reason beside it; K1's, K2's, K3's and K11's entries
    carry both their bounds, K5's and K6's their N=512 time and bound;
@@ -1876,6 +1898,389 @@ def profile_phase(torch, n: int, batch: int, **overrides) -> dict:
     return split
 
 
+# the asynchronous plane's path: BASELINE.json configs[2] (N=64, f=21,
+# 10k-tx batches; bench.py:96 measure_protocol's arrangement), one warm-up
+# kick, then ASYNC_EPOCHS measured kicks; its 'cpu' twin runs the warm-up
+# and the first measured kick
+ASYNC_N, ASYNC_BATCH, ASYNC_EPOCHS, ASYNC_TWIN_EPOCHS = 64, 10000, 2, 1
+ASYNC_CONFIG_SEED, ASYNC_TX_SEED = 99, 13
+# the entry points the path must launch: K1 and K5 (each node's propose,
+# B=1), K6 and K3 (the hub's branch and decode waves), K8 (pooled CP
+# checks) and K9 (coin and decryption-share issue)
+ASYNC_SITES = ("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
+               "dual_pow", "pow_grouped")
+
+
+def async_cluster(n: int, batch: int, **overrides):
+    """The async path's ``SimulatedCluster`` (``bench.py``
+    ``measure_protocol``): the port's defaults unless ``overrides``
+    (``crypto_backend``, ``device``) say otherwise."""
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
+
+    cfg = Config(n=n, batch_size=batch, seed=ASYNC_CONFIG_SEED, **overrides)
+    return SimulatedCluster(config=cfg, key_seed=KEY_SEED, auto_propose=True,
+                            shared_hub=True)
+
+
+def async_kick(cluster, txs) -> float:
+    """Queue ``txs`` round-robin over the nodes, start an epoch on every
+    node and run the network until it is quiet; returns the wall seconds
+    of the run (``add_transaction`` never opens an epoch by itself)."""
+    ids = cluster.ids
+    for i, tx in enumerate(txs):
+        cluster.nodes[ids[i % len(ids)]].add_transaction(tx)
+    t0 = time.perf_counter()
+    for hb in cluster.nodes.values():
+        hb.start_epoch()
+    cluster.net.run()
+    return time.perf_counter() - t0
+
+
+def ledger_bytes(cluster) -> dict:
+    """Every node's committed batches as their WAL record bodies."""
+    from cleisthenes_tpu_torch.core.ledger import encode_batch_body
+
+    return {nid: [encode_batch_body(e, b) for e, b in enumerate(hb.committed_batches)]
+            for nid, hb in cluster.nodes.items()}
+
+
+class AsyncRecorder:
+    """Instruments one async run from outside the program: the host clock
+    around every outermost ``CryptoHub.flush`` (with the modexp engines'
+    ``stats`` inside it and the hub's per-flush column widths), and the
+    arguments of every call of the six entry points, kept to time the
+    kernels at the path's own shapes afterwards.  ``close`` restores
+    every wrapped function."""
+
+    WRAPPED = (
+        ("rs_cuda", "rs_encode"), ("sha256_cuda", "build_forest"),
+        ("sha256_cuda", "verify_branches"), ("rs_cuda", "decode_recheck"),
+        ("modexp_cuda", "dual_pow_fused"), ("modexp_cuda", "pow_fused_grouped"),
+    )
+
+    def __init__(self, engines):
+        import importlib
+
+        from cleisthenes_tpu_torch.protocol import hub as hub_mod
+
+        self.engines = engines
+        self.flush_s = 0.0
+        self.flush_engine = {"engine_s": 0.0, "device_s": 0.0, "calls": 0}
+        self.widths = {"branch": [], "decode": [], "share": []}
+        self.flush_dispatches = []
+        self.calls = {name: [] for _mod, name in self.WRAPPED}
+        self._restore = []
+        real_flush = hub_mod.CryptoHub.flush
+        rec = self
+
+        def flush(hub):
+            if hub._flushing:
+                return real_flush(hub)
+            before = [dict(e.stats) for e in rec.engines]
+            st = hub.stats()
+            t0 = time.perf_counter()
+            try:
+                return real_flush(hub)
+            finally:
+                rec.flush_s += time.perf_counter() - t0
+                for eng, old in zip(rec.engines, before):
+                    for k_ in rec.flush_engine:
+                        rec.flush_engine[k_] += eng.stats[k_] - old[k_]
+                now = hub.stats()
+                for kind in rec.widths:
+                    w = now[kind + "_items"] - st[kind + "_items"]
+                    if w:
+                        rec.widths[kind].append(w)
+                rec.flush_dispatches.append(now["dispatches"] - st["dispatches"])
+
+        hub_mod.CryptoHub.flush = flush
+        self._restore.append((hub_mod.CryptoHub, "flush", real_flush))
+        for mod_name, name in self.WRAPPED:
+            mod = importlib.import_module("cleisthenes_tpu_torch.ops." + mod_name)
+            real = getattr(mod, name)
+
+            def kept(*args, _real=real, _name=name):
+                rec.calls[_name].append(args)
+                return _real(*args)
+
+            setattr(mod, name, kept)
+            self._restore.append((mod, name, real))
+
+    def close(self) -> None:
+        for obj, name, real in reversed(self._restore):
+            setattr(obj, name, real)
+        self._restore = []
+
+
+def _p50(xs):
+    return statistics.median(xs) if xs else None
+
+
+def async_kernel_records(torch, calls, b1_rate: float) -> dict:
+    """Each entry point of the async path held to its plain version and
+    timed (kernel by CUDA events, median of 20; plain, median of 3) on
+    the inputs of one of its own calls in the measured run: K1 and K5 at
+    their propose call (B=1; the median call by rows), K6, K3, K8 and K9
+    at their median hub-wave call by rows; with the bounds ``kernel_phase``
+    and ``modexp_phase`` give the same work."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+    from cleisthenes_tpu_torch.ops import rs_cuda as rs
+    from cleisthenes_tpu_torch.ops import sha256_cuda as sh
+
+    # the argument whose first dimension counts a call's rows
+    row_arg = {"rs_encode": 1, "build_forest": 0, "verify_branches": 0,
+               "decode_recheck": 2, "dual_pow_fused": 0, "pow_fused_grouped": 1}
+
+    def median_call(name):
+        cs = sorted(calls[name], key=lambda a: a[row_arg[name]].shape[0])
+        return cs[len(cs) // 2], len(cs)
+
+    def host(t):
+        return t.cpu().numpy()
+
+    out = {}
+    for name in ASYNC_SITES:
+        wrapped = {"merkle_forest": "build_forest", "merkle_verify": "verify_branches",
+                   "dual_pow": "dual_pow_fused", "pow_grouped": "pow_fused_grouped"}.get(name, name)
+        if not calls[wrapped]:
+            raise AssertionError(f"async path made no {wrapped} call")
+        args, n_calls = median_call(wrapped)
+        tc = None
+        if name == "rs_encode":
+            enc, data = args
+            n_, k = enc.shape
+            b, _, L = data.shape
+            kern, plain = (lambda: rs.rs_encode(*args)), (lambda: rs.gf256_apply_plain(*args))
+            nbytes = b * k * L + n_ * k + b * n_ * L
+            ops = (2 * b * (n_ - k) * k * L, 0)
+            tc = gf2_bit_products(n_ - k, k, b * L, 8), (0, 0)
+            shape = f"B={b} n={n_} k={k} L={L}"
+        elif name == "merkle_forest":
+            (full,) = args
+            b, n_, L = full.shape
+            p = sh.next_pow2(n_)
+            kern, plain = (lambda: sh.build_forest(*args)), (lambda: sh.build_forest_plain(*args))
+            nbytes = b * n_ * L + b * (2 * p - 1) * 32
+            ops = sha_ops(b * n_ * blocks(L + 1), b * (p - 1))
+            shape = f"B={b} n={n_} L={L}"
+        elif name == "merkle_verify":
+            roots, leaves, br, idx = args
+            b, L = leaves.shape
+            d = br.shape[1]
+            kern, plain = (lambda: sh.verify_branches(*args)), (lambda: sh.verify_branches_plain(*args))
+            nbytes = b * (32 + L + d * 32 + 8 + 1)
+            ops = sha_ops(b * blocks(L + 1), b * d)
+            shape = f"B={b} L={L} D={d}"
+        elif name == "decode_recheck":
+            dec, enc, shards = args
+            n_, k = enc.shape
+            b, _, L = shards.shape
+            p = sh.next_pow2(n_)
+            kern, plain = (lambda: rs.decode_recheck(*args)), (lambda: rs.decode_recheck_plain(*args))
+            per_instance = dec.dim() == 3
+            nbytes = 2 * b * k * L + k * k * (b if per_instance else 1) + n_ * k + b * 32
+            forest_ops = sha_ops(b * n_ * blocks(L + 1), b * (p - 1))
+            table_ops = 2 * b * k * k * L + 2 * b * (n_ - k) * k * L
+            ops = tuple(table_ops + o for o in forest_ops)
+            tc = (gf2_bit_products(k, k, b * L, 8) + gf2_bit_products(n_ - k, k, b * L, 8),
+                  forest_ops)
+            shape = f"B={b} n={n_} k={k} L={L} per_instance_matrices={per_instance}"
+        elif name == "dual_pow":
+            kern, plain = (lambda: mx.dual_pow_fused(*args)), (lambda: mx.dual_pow_fused_plain(*args))
+            b = args[0].shape[0]
+            nbytes = b * (3 * 33 + 2 * 32)
+            products = dual_products(np, *(host(a) for a in args[:4]))
+            shape = f"rows={b}"
+        else:  # pow_grouped
+            kern, plain = (lambda: mx.pow_fused_grouped(*args)), \
+                (lambda: mx.pow_fused_grouped_plain(*args))
+            bases, exps, rows = (host(a) for a in args[:3])
+            b = rows.shape[0]
+            nbytes = bases.size + exps.size + rows.nbytes + b * 33
+            products = least_comb(np, bases, exps, rows)
+            shape = f"rows={b} bases={bases.shape[0]}"
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        equal = all(torch.equal(g, w) for g, w in zip(got_t, want_t))
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got_t, want_t))
+        rec = {"equal": equal, "max_abs_err": float(err), "shape": shape, "calls": n_calls,
+               "kernel_ms": time_ms(torch, kern, 20), "plain_ms": time_ms(torch, plain, 3)}
+        if name in ("dual_pow", "pow_grouped"):
+            rec["bound_ms"], rec["bound_by"] = mont_bound(nbytes, products)
+            rec["products"] = products
+        else:
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, *ops)
+            if tc is not None:  # the codecs: the lesser of their two bounds
+                rec["int_bound_ms"] = rec["bound_ms"]
+                t_ms, t_by = tc_bound(nbytes, tc[0], b1_rate, *tc[1])
+                if t_ms < rec["bound_ms"]:
+                    rec["bound_ms"], rec["bound_by"] = t_ms, t_by
+                rec["tc_bound_ms"] = t_ms
+        print(f"kernel {name}@async_n64 {shape} (median of {n_calls} calls): "
+              f"equal={equal} kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']} "
+              f"bound_ms={rec['bound_ms']} ({rec['bound_by']}) "
+              f"x_bound={rec['kernel_ms'] / rec['bound_ms']}", flush=True)
+        out[name] = rec
+    return out
+
+
+def async_phase(torch, b1_rate: float, n: int = ASYNC_N, batch: int = ASYNC_BATCH,
+                epochs: int = ASYNC_EPOCHS, twin_epochs: int = ASYNC_TWIN_EPOCHS,
+                **overrides) -> dict:
+    """The asynchronous protocol plane through its user entry point,
+    ``SimulatedCluster``, with the port's defaults (``crypto_backend=
+    'cuda'``, ``device='cuda'``) unless ``overrides`` (a CPU rehearsal
+    passes device='cpu'): one warm-up kick and ``epochs`` measured kicks
+    of ``batch`` random 64-byte transactions each, spread round-robin
+    over the nodes.  Gates: every node commits the same batches, every
+    transaction once, none left pending; every modexp engine is the
+    card's; with the launch counts reset just before the measured kicks,
+    ``ASYNC_SITES`` launch and nothing of ``OFF_PATH``; a twin on the
+    'cpu' backend, given the same transactions and seeds for the warm-up
+    and ``twin_epochs`` kicks, commits byte-identical batches on every
+    node.  Prints each kick's wall seconds and committed epochs, node 0's
+    two frontiers (``ordered_latency``/``epoch_latency`` p50), tx/s, the
+    hub's stats and column widths, launches per kick and the split of
+    the hub's flush seconds; then times the six entry points at the
+    path's shapes (``async_kernel_records``).  Returns {"launches":
+    per-kick launch dicts, "kernels": records}."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops.modmath import get_engine_degraded
+
+    t0 = time.perf_counter()
+    cluster = async_cluster(n, batch, **overrides)
+    cfg = cluster.config
+    hub = cluster._hub
+    keys = cluster.keys[cluster.ids[0]]
+    print(
+        f"async_phase: SimulatedCluster(n={n}, batch_size={batch}, seed="
+        f"{ASYNC_CONFIG_SEED}, key_seed={KEY_SEED}) backend={cfg.crypto_backend} "
+        f"device={cfg.device} f={cfg.f} k={cfg.data_shards} "
+        f"pipeline_depth={cfg.pipeline_depth} group_bits="
+        f"{keys.tpke_pub.group.p.bit_length()} codec={type(hub.crypto.erasure).__name__} "
+        f"setup_s={time.perf_counter() - t0}",
+        flush=True,
+    )
+    on_card = torch.device(cfg.device).type == "cuda" and cfg.crypto_backend == "cuda"
+    engines = [
+        get_engine_degraded(hub.crypto.engine_backend, gp, hub.crypto.device)
+        for gp in {keys.tpke_pub.group, keys.coin_pub.group}
+    ]
+    if on_card and any(eng.backend != "cuda" for eng in engines):
+        raise AssertionError("a modexp engine of the async path is not the card's")
+    rows = np.random.default_rng(ASYNC_TX_SEED).integers(
+        0, 256, ((epochs + 1) * batch, TX_BYTES), dtype=np.uint8)
+    txs = [r.tobytes() for r in rows]
+    kicks = [txs[i * batch:(i + 1) * batch] for i in range(epochs + 1)]
+    warm_s = async_kick(cluster, kicks[0])
+    n0 = cluster.nodes[cluster.ids[0]]
+    print(f"async warm-up: wall_s={warm_s} settled_epochs={n0.settled_epoch}", flush=True)
+    if n0.settled_epoch < 1:
+        raise AssertionError("async warm-up epoch did not commit")
+    depth_after = [len(n0.committed_batches)]
+    rec = AsyncRecorder(engines)
+    COUNTS.reset()
+    kick_s, per_kick, st0 = [], [], hub.stats()
+    eng0 = [dict(e.stats) for e in engines]
+    mark = time.monotonic()
+    try:
+        for e in range(epochs):
+            before = launch_counts()
+            kick_s.append(async_kick(cluster, kicks[e + 1]))
+            if on_card:
+                torch.cuda.synchronize()
+            now = launch_counts()
+            per_kick.append({
+                kind: {k_: v - before[kind].get(k_, 0) for k_, v in now[kind].items()
+                       if v - before[kind].get(k_, 0)}
+                for kind in now
+            })
+            depth_after.append(len(n0.committed_batches))
+            print(f"async epoch {e}: wall_s={kick_s[-1]} settled_epochs="
+                  f"{n0.settled_epoch} launches={json.dumps(per_kick[-1]['sites'], sort_keys=True)}",
+                  flush=True)
+    finally:
+        rec.close()
+    launches = launch_counts()
+    # gates: agreement, exactly-once, nothing pending, launches
+    cluster.assert_agreement()
+    committed = [tx for b in n0.committed_batches for tx in b.tx_list()]
+    pending = sum(hb.outstanding_tx_count() for hb in cluster.nodes.values())
+    if pending or len(committed) != len(txs) or set(committed) != set(txs):
+        raise AssertionError(
+            f"async path committed {len(committed)} txs ({len(set(committed))} "
+            f"distinct) of {len(txs)}, {pending} outstanding")
+    for site in ASYNC_SITES:
+        if on_card and launches["sites"].get(site, 0) <= 0:
+            raise AssertionError(f"async path never launched {site}: {launches}")
+    for site in OFF_PATH:
+        if launches["sites"].get(site, 0):
+            raise AssertionError(f"async path launched {site}: {launches}")
+    m = n0.metrics
+    spans = [(tp, tc) for _e, tp, tc in m.epoch_spans() if tp >= mark and tc is not None]
+    st = {k_: v - st0[k_] for k_, v in hub.stats().items()}
+    eng = {k_: sum(e.stats[k_] - o[k_] for e, o in zip(engines, eng0))
+           for k_ in ("calls", "engine_s", "device_s")}
+    measured_txs = epochs * batch
+    print(
+        f"async_path: n={n} f={cfg.f} batch={batch} txs={len(txs)} committed_once="
+        f"{len(committed)} measured_kicks={epochs} kick_wall_s={kick_s} "
+        f"epochs_settled_in_window={len(spans)} "
+        f"ordered_epoch_p50_s={m.ordered_latency.p50} "
+        f"settled_epoch_p50_s={m.epoch_latency.p50} "
+        f"tx_per_s={measured_txs / sum(kick_s)}",
+        flush=True,
+    )
+    print("async_hub_stats " + json.dumps({
+        **st,
+        "flushes_timed": len(rec.flush_dispatches),
+        "dispatches_per_flush_p50": _p50(rec.flush_dispatches),
+        "wave_width_p50": {k_: _p50(v) for k_, v in rec.widths.items()},
+        "wave_width_max": {k_: max(v) if v else None for k_, v in rec.widths.items()},
+        "waves": {k_: len(v) for k_, v in rec.widths.items()},
+    }, sort_keys=True), flush=True)
+    fe = rec.flush_engine
+    print(
+        f"async_flush_split: kick_s={sum(kick_s)} flush_s={rec.flush_s} "
+        f"flush_engine_s={fe['engine_s']} flush_device_s={fe['device_s']} "
+        f"flush_packing_s={fe['engine_s'] - fe['device_s']} "
+        f"flush_host_python_s={rec.flush_s - fe['engine_s']} "
+        f"engine_calls_in_flush={fe['calls']} engine_s_whole_run={eng['engine_s']} "
+        f"device_s_whole_run={eng['device_s']} engine_calls_whole_run={eng['calls']} "
+        f"outside_flush_s={sum(kick_s) - rec.flush_s}",
+        flush=True,
+    )
+    print("launches_async_path " + json.dumps(launches, sort_keys=True), flush=True)
+    print("launches_async_per_kick " + json.dumps(per_kick, sort_keys=True), flush=True)
+    # the 'cpu' twin: the same transactions, seeds and kicks
+    t0 = time.perf_counter()
+    twin = async_cluster(n, batch, crypto_backend="cpu")
+    twin_s = [async_kick(twin, kicks[i]) for i in range(1 + twin_epochs)]
+    card_l, twin_l = ledger_bytes(cluster), ledger_bytes(twin)
+    depth = len(twin_l[cluster.ids[0]])
+    same = depth == depth_after[twin_epochs] and all(
+        twin_l[nid] == card_l[nid][:depth] for nid in cluster.ids)
+    print(f"async_twin: backend=cpu kicks={1 + twin_epochs} kick_wall_s={twin_s} "
+          f"depth={depth} card_depth={depth_after[twin_epochs]} "
+          f"ledger_equal={same} total_s={time.perf_counter() - t0}", flush=True)
+    if not same:
+        raise AssertionError("the card cluster's ledger differs from the cpu twin's")
+    del twin
+    records = async_kernel_records(torch, rec.calls, b1_rate) if on_card else {}
+    bad = [name for name, r in records.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"async-shape kernels disagree with their plain versions: {bad}")
+    return {"launches": per_kick, "kernels": records}
+
+
 def native_modpow_path() -> str:
     """Path of the host's native modexp library, which BBA runs on in
     this slice; raises if it did not build or load, since the main
@@ -2035,6 +2440,7 @@ def main() -> int:
                "wide_pow", "wide_dual_pow"),
         absent=("pow_grouped", "dual_pow", "pow"),
     )
+    async_res = async_phase(torch, b1_rate)
     dkg_launches = dkg_run_phase(torch, dev)
     dkg_steps = dkg_roster_phase(torch, dev)
     share_launches = share_phase(torch, dev)
@@ -2088,6 +2494,14 @@ def main() -> int:
             kernels[-1]["launches_dkg_g384"] = dkg_launches["g384"]["kernels"].get(name, 0)
         elif name in ("pow_grouped", "dual_pow"):
             kernels[-1]["launches_share_phase"] = share_launches["sites"].get(name, 0)
+        kernels[-1]["launches_async_n64_per_epoch"] = [
+            kick["sites"].get(name, kick["kernels"].get(name, 0))
+            for kick in async_res["launches"]]
+        if name in async_res["kernels"]:
+            a_ = async_res["kernels"][name]
+            kernels[-1]["async_n64"] = {k_: a_[k_] for k_ in (
+                "shape", "calls", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by")}
         if name in OFF_PATH:
             kernels[-1]["kernel_phase_launches"] = rec["launches_per_call"]
             kernels[-1]["off_path"] = OFF_PATH[name]

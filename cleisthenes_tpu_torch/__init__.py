@@ -6,8 +6,12 @@ package imports ``torch``, numpy and the standard library only, and
 mirrors the reference's layout (``config``, ``ops/``, ``core/``,
 ``protocol/``) so each counterpart is found by name.
 
-It runs the lockstep epoch (``protocol.spmd.LockstepCluster``) with
-every batched wave in hand-written CUDA kernels (``csrc/``): the RBC
+It runs the asynchronous protocol plane — N ``HoneyBadger`` state
+machines (RBC, BBA, ACS, threshold decryption) over the deterministic
+channel transport, in one process as ``protocol.cluster.SimulatedCluster``
+with a cluster-shared ``CryptoHub`` that batches each message wave's
+crypto — and the lockstep epoch (``protocol.spmd.LockstepCluster``),
+with every batched wave in hand-written CUDA kernels (``csrc/``): the RBC
 data plane — Reed-Solomon encode (GF(2^8), or GF(2^16) past 256
 validators), Merkle forest, the N^2 ECHO branch checks and the
 decode/re-encode/root recheck — and the BBA coin and decryption-share
@@ -22,7 +26,25 @@ instead of running on the CPU.
 
 from cleisthenes_tpu_torch.config import Config
 from cleisthenes_tpu_torch.core.batch import Batch
+from cleisthenes_tpu_torch.core.member import Address, Member, MemberMap
+from cleisthenes_tpu_torch.core.queue import (
+    EmptyQueueError,
+    IndexBoundaryError,
+    Transaction,
+    TxQueue,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["Batch", "Config"]
+__all__ = [
+    "Config",
+    "Batch",
+    "Address",
+    "Member",
+    "MemberMap",
+    "TxQueue",
+    "Transaction",
+    "EmptyQueueError",
+    "IndexBoundaryError",
+    "__version__",
+]

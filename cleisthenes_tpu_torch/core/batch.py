@@ -10,11 +10,9 @@ reference leaves implicit because its ACS is absent.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Dict, List
 
-# A transaction is opaque to the consensus core (honeybadger.go:115);
-# the same alias as cleisthenes_tpu/core/queue.py:20.
-Transaction = Any
+from cleisthenes_tpu_torch.core.queue import Transaction
 
 
 @dataclasses.dataclass

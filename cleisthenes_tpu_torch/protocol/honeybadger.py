@@ -1,0 +1,2999 @@
+"""HoneyBadger: the top-level consensus object and epoch loop.
+
+Completes the reference's L4 (reference honeybadger.go): the tx FIFO
+buffer, the batch policy b = max(batchSize, n) with uniform sampling of
+b/n candidates (honeybadger.go:36-49, 62-104; docs/HONEYBADGER-EN.md:
+49-56), and the missing epoch pipeline the TODOs call for
+(honeybadger.go:19-21, 57-59):
+
+  per epoch e (docs/HONEYBADGER-EN.md:58-65):
+    batch   <- select B/N random txs from the queue head
+    ct      <- TPKE.Encrypt(master_pk, batch)      [censorship resistance]
+    ACS_e   <- input ct; output {proposer: ct_j}
+    share   -> broadcast TPKE.DecShare for every ct_j in the output
+    commit  <- TPKE.Decrypt each ct_j from f+1 verified shares;
+               union, dedupe, deterministic order -> committed Batch
+
+Epoch demux keeps a sliding window of live epoch states: messages for
+future epochs (peers ahead of us) are routed into lazily-created
+states, the role of the reference's IncomingRequestRepository
+(bba/request.go:28-32); states a few epochs behind stay alive so
+lagging peers still get our participation, then are GC'd.
+
+Trusted-dealer key setup (``setup_keys``) issues the TPKE and coin
+share sets plus the envelope-MAC master secret — the standard HBBFT
+deployment model (docs/THRESHOLD_ENCRYPTION-EN.md:33: "SetUp").
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+from cleisthenes_tpu_torch.config import MAX_PIPELINE_DEPTH, Config
+from cleisthenes_tpu_torch.core.batch import Batch
+from cleisthenes_tpu_torch.core.ledger import (
+    decode_batch_body,
+    decode_ordered_body,
+    encode_batch_body,
+    encode_ordered_body,
+)
+from cleisthenes_tpu_torch.core.queue import TxQueue
+from cleisthenes_tpu_torch.protocol.hub import _Memo
+from cleisthenes_tpu_torch.ops.backend import BatchCrypto, get_backend
+from cleisthenes_tpu_torch.ops.coin import CommonCoin
+from cleisthenes_tpu_torch.ops.tpke import (
+    Ciphertext,
+    DhShare,
+    SharePool,
+    Tpke,
+    issue_shares_batch,
+)
+from cleisthenes_tpu_torch.protocol.acs import ACS
+from cleisthenes_tpu_torch.utils.determinism import proposal_rng
+from cleisthenes_tpu_torch.utils.log import NodeLogger
+from cleisthenes_tpu_torch.utils.metrics import Metrics
+from cleisthenes_tpu_torch.utils.trace import maybe_recorder
+from cleisthenes_tpu_torch.transport.broadcast import CoalescingBroadcaster
+from cleisthenes_tpu_torch.transport.message import (
+    BbaBatchPayload,
+    BbaPayload,
+    BundlePayload,
+    CatchupOrdPayload,
+    CatchupReqPayload,
+    CatchupRespPayload,
+    CoinBatchPayload,
+    CoinPayload,
+    DecShareBatchPayload,
+    DecSharePayload,
+    EchoBatchPayload,
+    LanePayload,
+    Message,
+    RbcPayload,
+    ReadyBatchPayload,
+    ResharePayload,
+)
+
+# Sliding epoch window: how many settled epochs stay responsive for
+# lagging peers, and how far ahead a fast peer may pull us.
+KEEP_BEHIND = 2
+EPOCH_HORIZON = 8
+# the K-deep pipeline window (Config.pipeline_depth) must fit the
+# demux window's forward horizon, or an in-flight epoch's traffic
+# could not reach a same-frontier peer (Config validates depth
+# against MAX_PIPELINE_DEPTH; this pins the two constants together)
+assert MAX_PIPELINE_DEPTH <= EPOCH_HORIZON
+# epochs of committed-tx memory for lazy duplicate filtering
+COMMITTED_MEMORY_EPOCHS = 64
+# CATCHUP serving cap: epochs one CatchupReq answers with (the
+# requester chases the next window as it adopts), and how far past a
+# node's own frontier it tallies responses (bounds tally memory
+# against a Byzantine peer spraying far-future epochs)
+CATCHUP_MAX_EPOCHS = 32
+CATCHUP_WINDOW = 128
+# serving-side amplification guard: a sender whose from_epoch does not
+# advance past the window already served it gets this many repeat
+# serves, re-armed on every local epoch advance (an 8-byte CatchupReq
+# otherwise buys CATCHUP_MAX_EPOCHS full batch bodies — a free 32x
+# bandwidth/CPU amplifier for a Byzantine member looping requests).
+# Counted, not clocked: seeded deterministic runs replay exactly.
+CATCHUP_REPEAT_BUDGET = 2
+# a laggard whose CatchupReq (or its responses) was lost re-broadcasts
+# after every this-many further sightings of far-ahead traffic — a
+# deterministic, traffic-driven retry (no timers in the protocol plane)
+CATCHUP_RENUDGE_EVERY = 32
+# reduced-quorum stall watchdog (Config.reduced_quorum only): forced
+# catch-up chases per stuck settled frontier, fired at quiet idle
+# boundaries (no inbound since the previous idle callback while
+# settled < live frontier), re-armed whenever settlement advances.
+# At n-f quorums the READY amplification threshold (f+1) EQUALS the
+# delivery quorum, so Bracha totality no longer follows from honest
+# traffic alone: a node that missed a lossy coalition member's frames
+# can sit one READY short of an instance the rest of the roster
+# delivered, wedging its ACS forever in an otherwise quiescent
+# cluster.  The repair is retrieval, not lower thresholds (lowering
+# amplification below f+1 would let an attested-but-lying coalition
+# lock honest READYs onto a fabricated root): chase the committed
+# batches through CATCHUP, whose f+1 byte-identical adoption rule is
+# loss-tolerant under retry.  Counted, not clocked — seeded runs
+# replay exactly.  Baseline (3f+1) arms never fire this: totality
+# holds from honest traffic alone, and gating on the flag keeps every
+# historical schedule byte-identical.
+CATCHUP_STALL_BUDGET = 4
+
+# The tx-list and ciphertext codecs and the dealer's key setup live in
+# protocol/keys.py (shared with the lockstep executor); re-exported
+# here, where the reference defines them.
+from cleisthenes_tpu_torch.protocol.keys import (  # noqa: E402,F401
+    MAX_TXS_PER_LIST,
+    NodeKeys,
+    deserialize_ciphertext,
+    deserialize_txs,
+    serialize_ciphertext,
+    serialize_txs,
+    setup_keys,
+)
+
+
+def make_tx_parse_memo() -> _Memo:
+    """Content-keyed parse memo for CLUSTER SIMULATIONS: every in-proc
+    node decrypts the SAME plaintext per proposer and re-parses it
+    (N x N parses of N distinct blobs per epoch; ~1.7 s at
+    N=64/B=16k).  Keyed by digest — blobs are distinct bytes objects
+    per node, so id-keying cannot hit.  A real per-node deployment
+    parses N distinct blobs that never recur, so it passes NO memo
+    (the default): pinning megabyte blobs and hashing every parse
+    would be pure overhead there — same reasoning, and the same
+    seam, as CryptoHub's dedup flag.  Instance-scoped (the cluster
+    shares ONE across its nodes and drops it with the cluster), never
+    process-global.  ``deserialize_txs(data, memo)`` reads it."""
+    return _Memo(1 << 10)
+
+
+# ---------------------------------------------------------------------------
+# per-epoch state
+# ---------------------------------------------------------------------------
+
+
+# the payload classes the ACS layer consumes (set-membership dispatch:
+# _serve_payload runs O(N^2) times per wave and the isinstance chain
+# was measurable at N=64)
+_ACS_PAYLOADS = frozenset(
+    (
+        RbcPayload,
+        BbaPayload,
+        CoinPayload,
+        BbaBatchPayload,
+        CoinBatchPayload,
+        ReadyBatchPayload,
+        EchoBatchPayload,
+    )
+)
+
+
+def _logical_count(p) -> int:
+    """Logical protocol messages in one payload: a columnar batch
+    carries one vote/share PER INSTANCE, and msgs_in counts logical
+    messages so throughput numbers stay comparable across the
+    scalar->columnar wire change."""
+    if p.__class__ is LanePayload:
+        p = p.inner  # lane framing is transport plumbing, not a message
+    proposers = getattr(p, "proposers", None)
+    return len(proposers) if proposers is not None else 1
+
+
+def _logical_count_many(items) -> int:
+    return sum(_logical_count(p) for p in items)
+
+
+class _RosterView:
+    """One roster version's resolved runtime state: the derived
+    Config (n/f/thresholds), the sorted member table, this node's key
+    set and the crypto service objects bound to it.  Every epoch-
+    scoped structure — ACS (and its EchoBank/VoteBank), the demux
+    window, the dec-share pools, the WaveRouter's dispatch targets —
+    resolves n/f/keys through the EPOCH's view instead of the
+    construction-time constants (the dynamic-membership refactor;
+    staticcheck DET005 gates regressions).
+
+    ``keys``/``tpke``/``coin`` are None exactly when ``local`` is
+    False (this node is not a member under the version — a joiner
+    before its activation epoch, or a retiree after): such a node
+    never constructs protocol state for the version's epochs.
+    """
+
+    __slots__ = (
+        "rv",
+        "config",
+        "member_ids",
+        "member_set",
+        "keys",
+        "crypto",
+        "tpke",
+        "coin",
+        "local",
+    )
+
+    def __init__(
+        self, rv, config, member_ids, keys, crypto, tpke, coin
+    ) -> None:
+        self.rv = rv
+        self.config = config
+        self.member_ids: Tuple[str, ...] = tuple(sorted(member_ids))
+        self.member_set = frozenset(self.member_ids)
+        self.keys = keys
+        # the version's OWN BatchCrypto: the erasure coder is sized
+        # (n, k = n - 2f) per roster, so RBC under a resized roster
+        # encodes/decodes with the right geometry
+        self.crypto = crypto
+        self.tpke = tpke
+        self.coin = coin
+        self.local = keys is not None
+
+
+class _EpochState:
+    __slots__ = (
+        "acs",
+        "view",
+        "proposed",
+        "my_txs",
+        "output",
+        "ciphertexts",
+        "dec_shares",
+        "decrypted",
+        "opt_failed",
+        "opt_short",
+        "committed",
+        "ordered",
+        "shares_issued",
+        "t_ordered",
+    )
+
+    def __init__(
+        self, acs: Optional[ACS], view: Optional[_RosterView] = None
+    ) -> None:
+        # ``acs`` is None for SETTLE-ONLY states (two-frontier mode):
+        # epochs whose ordering is already durable — WAL replay after a
+        # crash between COrd and CLOG, or COrd catch-up adoption — that
+        # only need the trailing decryption, never a consensus re-run.
+        self.acs = acs
+        # the roster version this epoch runs under (set by every
+        # construction site; epoch-scoped membership/threshold/key
+        # reads resolve through it)
+        self.view = view
+        self.proposed = False
+        self.my_txs: List[bytes] = []
+        self.output: Optional[Dict[str, bytes]] = None
+        self.ciphertexts: Dict[str, Ciphertext] = {}
+        # proposer -> sender-keyed verified-share pool
+        self.dec_shares: Dict[str, SharePool] = {}
+        # proposer -> tx list, or None = deterministically excluded
+        self.decrypted: Dict[str, Optional[List[bytes]]] = {}
+        # proposers whose optimistic (unverified-subset) combine hit a
+        # bad tag: their shares take the CP-verified path instead
+        self.opt_failed: Set[str] = set()
+        # proposers whose pool hit the size threshold without enough
+        # DISTINCT Shamir indices (duplicate-index share from a
+        # Byzantine sender): later adds must keep re-probing, the
+        # exact-crossing trigger alone would stall them forever
+        self.opt_short: Set[str] = set()
+        self.committed = False
+        # two-frontier bookkeeping (Config.order_then_settle): the
+        # ciphertext ordering is durable / this node's dec shares went
+        # out / the trace clock at ordering (decrypt_lag span start)
+        self.ordered = False
+        self.shares_issued = False
+        self.t_ordered = 0.0
+
+
+class _CountingBroadcaster:
+    """Wraps the node's PayloadBroadcaster to count outbound protocol
+    PAYLOADS (one per logical message per receiver).  Envelope counts
+    live at the transport (ChannelNetwork.messages_posted): with
+    coalescing, a wave's payloads share far fewer envelopes."""
+
+    def __init__(self, inner, metrics: Metrics, n_members: int) -> None:
+        self._inner = inner
+        self._metrics = metrics
+        self._n = n_members
+
+    def broadcast(self, payload) -> None:
+        self._metrics.msgs_out.inc(self._n)
+        self._inner.broadcast(payload)
+
+    def send_to(self, member_id: str, payload) -> None:
+        self._metrics.msgs_out.inc()
+        self._inner.send_to(member_id, payload)
+
+
+class _LaneTagger:
+    """Outbound lane framing for sibling lanes (Config.lanes > 1).
+
+    A lane-k (k > 0) HoneyBadger's protocol payloads wrap in
+    ``LanePayload(k, inner)`` BEFORE entering the node's ONE shared
+    CoalescingBroadcaster, so all S lanes' traffic of a turn rides the
+    same per-receiver bundle (one flush, one envelope per receiver per
+    wave — the dispatch-flatness requirement).  The coalescer's
+    columnar merge understands the tag: runs of same-lane same-kind
+    payloads still merge into one lane-wrapped column.  Lane 0 never
+    wraps (its wire frames stay byte-identical to the single-lane
+    build), and the receiver's demux routes lane k frames into its
+    lane-k sibling."""
+
+    __slots__ = ("_inner", "_lane")
+
+    def __init__(self, inner, lane: int) -> None:
+        self._inner = inner
+        self._lane = lane
+
+    def broadcast(self, payload) -> None:
+        self._inner.broadcast(LanePayload(self._lane, payload))
+
+    def send_to(self, member_id: str, payload) -> None:
+        self._inner.send_to(member_id, LanePayload(self._lane, payload))
+
+    def set_members(self, member_ids) -> None:
+        # membership is the PRIMARY coalescer's concern (dynamic
+        # membership is unsupported at lanes > 1 anyway)
+        pass
+
+
+class HoneyBadger:
+    """One validator node (reference honeybadger.go:18-34 + the absent
+    epoch driver).  Implements transport.base.Handler, plus the
+    wave-ingest extension ``serve_wave`` (Config.wave_routing)."""
+
+    # the demux window's forward horizon, re-exported as a class
+    # attribute so the WaveRouter reads it off its owner without a
+    # circular module import
+    EPOCH_HORIZON = EPOCH_HORIZON
+
+    def __init__(
+        self,
+        *,
+        config: Config,
+        node_id: str,
+        member_ids: Sequence[str],
+        keys: NodeKeys,
+        out,
+        auto_propose: bool = True,
+        batch_log=None,
+        hub=None,
+        tx_parse_memo: Optional[_Memo] = None,
+        behavior=None,
+        authenticator=None,
+        joining: bool = False,
+        roster_version_base: int = 0,
+        lane: int = 0,
+        _primary=None,
+    ) -> None:
+        self.config = config
+        # -- horizontal shard-out (Config.lanes) ---------------
+        # ``lane`` is this instance's shard index; ``_primary`` is the
+        # lane-0 instance when THIS instance is a sibling lane it
+        # constructed (internal — external construction sites always
+        # build lane 0, which builds its own siblings below).  The
+        # scope id qualifies every hub scope key with the lane so the
+        # S sibling lanes sharing one hub GC only their own epochs'
+        # clients; lane 0 keeps the bare node id, byte-identical to
+        # the single-lane build.
+        if not (0 <= lane < config.lanes):
+            raise ValueError(f"lane={lane} out of range for lanes={config.lanes}")
+        if (_primary is None) != (lane == 0):
+            raise ValueError("sibling lanes are built by their lane-0 primary")
+        self.lane = lane
+        self._primary = _primary
+        self._scope_id = node_id if lane == 0 else (node_id, lane)
+        # trace-event lane tag: empty at lanes=1 so the historical
+        # event shapes (and goldens) stay byte-identical
+        self._lane_kw = {"lane": lane} if config.lanes > 1 else {}
+        # populated at the END of __init__ (lane-0 primary only):
+        # sibling lane instances + the cross-lane merge cursor
+        self.lanes: List["HoneyBadger"] = [self]
+        self._merge = None
+        # cluster simulations pass one shared make_tx_parse_memo()
+        # across all nodes; real deployments leave it None
+        self._tx_parse_memo = tx_parse_memo
+        self.node_id = node_id
+        self.members: List[str] = sorted(member_ids)
+        self._member_set = frozenset(self.members)
+        if node_id not in self.members and not joining:
+            # ``joining=True`` is the dynamic-membership bootstrap: a
+            # JOINER constructs against the current roster it is NOT a
+            # member of, adopts the log via CATCHUP, and participates
+            # from the activation epoch the reshare ceremony fixes
+            raise ValueError(f"{node_id!r} not in roster")
+        self.keys = keys
+        self.auto_propose = auto_propose
+        # the node's envelope-MAC authenticator (optional): dynamic
+        # membership installs joiner pair keys / drops retired ones
+        # through it; None keeps the historical fixed-roster behavior
+        self._authenticator = authenticator
+
+        self.crypto: BatchCrypto = get_backend(config)
+        self.tpke = self.crypto.tpke(keys.tpke_pub)
+        self.coin = self.crypto.coin(keys.coin_pub)
+        # the per-node batched-crypto service every protocol instance
+        # (RBC/BBA across all live epochs, plus this node's TPKE
+        # decryption pools) shares — SURVEY.md §7 hard part 3
+        from cleisthenes_tpu_torch.protocol.hub import CryptoHub
+
+        # ``hub`` may be SHARED by every in-proc validator of a
+        # simulated cluster: one wave-deferred flush then executes the
+        # WHOLE roster's crypto in single cluster-wide dispatches — the
+        # north star's "vmap across all N validators" framing, and the
+        # only sane shape on a device where dispatch
+        # round-trips dominate.  Scopes are node-qualified so one
+        # node's epoch GC never drops a peer's clients.  Real
+        # deployments (one validator per host) keep per-node hubs.
+        self.hub = CryptoHub(self.crypto) if hub is None else hub
+        # permanent: dec-share pools (lane-qualified under shard-out)
+        self.hub.register((self._scope_id, "hb"), self)
+
+        self.que = TxQueue()
+        self._pending_coin_issues: List[tuple] = []
+        self.epoch = 0
+        # b = max(batchSize, n) (reference honeybadger.go:36-49)
+        self.b = max(config.batch_size, config.n)
+        self.committed_batches: List[Batch] = []
+        self.on_commit: Optional[Callable[[int, Batch], None]] = None
+        self.metrics = Metrics()
+        # coin-issue dispatch tallies -> snapshot()["hub"] (a shared
+        # hub reports cluster-wide numbers, like hub_dispatches; the
+        # counters move on BOTH egress arms — see _drain_coin_issues)
+        self.metrics.set_hub_stats(
+            lambda: {
+                "coin_share_batches": self.hub.coin_issue_batches,
+                "coin_share_items": self.hub.coin_issue_items,
+            }
+        )
+        self.log = NodeLogger(node_id, "hb")
+        # flight recorder (utils/trace.py): None when Config.trace is
+        # off — every instrumentation site below guards on that, so
+        # the disabled path is one attribute load + identity check
+        # sibling lanes share the primary's recorder: one node, one
+        # timeline — lane-scoped events carry the ``lane`` tag instead
+        self.trace = (
+            maybe_recorder(config, node_id)
+            if _primary is None
+            else _primary.trace
+        )
+        if self.trace is not None:
+            self.metrics.set_trace_stats(self.trace.stats)
+            if hub is None:  # a private hub reports on our timeline
+                self.hub.trace = self.trace
+        # messages served since the last transport idle callback (the
+        # wave-size series the trace's "transport/wave" events carry)
+        self._trace_wave_msgs = 0
+        # Outbound path: protocol payloads -> per-receiver coalescing
+        # buffers -> (at wave boundaries) bundled envelopes on the
+        # inner transport.  In self-draining mode (no transport idle
+        # callback) buffers flush at the end of every entry point; a
+        # transport that calls transport_manages_idle() moves flushing
+        # to its quiescence point for whole-wave bundles.
+        if _primary is None:
+            self._coalesce = CoalescingBroadcaster(
+                out,
+                self.members,
+                trace=self.trace,
+                egress_columnar=config.egress_columnar,
+            )
+        else:
+            # ONE coalescer per node: sibling lanes tag their payloads
+            # (see _LaneTagger below) and ride the primary's
+            # per-receiver buffers, so a wave's flush ships ALL S
+            # lanes' traffic in the same bundles — S lanes must not
+            # multiply flushes or envelopes
+            self._coalesce = _primary._coalesce
+        self._transport_managed = False
+        # semantic-adversary seam (protocol.byzantine): when a behavior
+        # is mounted, every outbound payload is offered to it once per
+        # receiver BEFORE coalescing, so a Byzantine node can lie to
+        # each peer separately while its frames still MAC and bundle
+        # exactly like honest traffic.  None (the default) adds nothing
+        # to the path.
+        self.behavior = behavior
+        outward = (
+            self._coalesce
+            if _primary is None
+            else _LaneTagger(self._coalesce, lane)
+        )
+        if behavior is not None:
+            from cleisthenes_tpu_torch.protocol.byzantine import (
+                BehaviorBroadcaster,
+            )
+
+            outward = BehaviorBroadcaster(
+                outward, self.members, behavior
+            )
+            behavior.attach(self)
+        self.out = _CountingBroadcaster(
+            outward, self.metrics, len(self.members)
+        )
+        self._epochs: Dict[int, _EpochState] = {}
+        # epoch -> COrd body bytes for every epoch this node ORDERED
+        # (locally or via COrd catch-up): the ordered CATCHUP serving
+        # store and the cross-node byte-identity invariant's witness.
+        # Epochs adopted via plaintext catch-up alone have no entry;
+        # entries one serving window behind the settled frontier are
+        # pruned (_advance_epoch), bounding the store.
+        self._ordered_bodies: Dict[int, bytes] = {}
+        # wave-routed ingest (Config.wave_routing): transports in wave
+        # mode hand whole delivery waves to serve_wave; the router
+        # demuxes them into typed columns and makes one batch handler
+        # dispatch per (kind, wave).  Constructed unconditionally
+        # (cheap); only transports that saw wave_routing on call it.
+        from cleisthenes_tpu_torch.protocol.router import WaveRouter
+
+        self._router = WaveRouter(self)
+        # settler reentrancy guard (settling starts the next epoch,
+        # whose turn exit would recurse into the settler) and the
+        # one-instant-per-parked-epoch trace dedup
+        self._settler_active = False
+        self._park_traced = -1
+        # K-deep pipelined frontiers (Config.pipeline_depth): the
+        # window-top-up drive's reentrancy guard (proposing runs the
+        # RBC propose path, whose turn exit would recurse back here)
+        # and the eager dec-share flag — True while this node has
+        # issue work staged in the hub's dec-share column awaiting
+        # the turn's piggyback drain (_drain_dec_issues)
+        self._pipeline_active = False
+        self._eager_staged = False
+        self.metrics.set_frontiers(
+            lambda: (self.epoch, len(self.committed_batches))
+        )
+        self.metrics.set_pipeline(
+            # read from observability threads (ValidatorHost sampler):
+            # list() snapshots the dict against concurrent protocol-
+            # thread mutation; ``not committed`` keeps the coupled
+            # arm honest (it never sets es.ordered, and committed
+            # epochs linger within KEEP_BEHIND of the frontier)
+            lambda: sum(
+                1
+                for s in list(self._epochs.values())
+                if s.proposed
+                and s.acs is not None
+                and not s.ordered
+                and not s.committed
+            )
+        )
+        # production: unpredictable sampling (censorship resistance);
+        # seeded: reproducible for tests (config.seed docs).  The
+        # seed-vs-SystemRandom fork lives in ONE audited helper
+        # (utils.determinism.proposal_rng) — plane code never touches
+        # the random module directly (staticcheck DET001).
+        # lane > 0 salts the stream with the lane id: sibling lanes
+        # are independent protocol instances and must not mirror lane
+        # 0's candidate sampling; lane 0 keeps the historical salt
+        # (byte-identical draws at lanes=1)
+        self._rng = proposal_rng(
+            config.seed,
+            node_id if lane == 0 else f"{node_id}#lane{lane}",
+        )
+        # recently committed txs, for lazy dedup at candidate-poll time
+        # (bounded: one entry per remembered epoch)
+        self._committed_filter: Set[bytes] = set()
+        self._committed_history: List[Set[bytes]] = []
+        # -- ingress plane (core.mempool + transport.ingress) ------------
+        # The fee-priority admission pool ahead of the TxQueue seam:
+        # client submissions admit through it (dedup / backpressure /
+        # priority eviction) and _create_batch drains it highest-fee-
+        # first into self.que.  mempool_capacity=0 keeps the exact
+        # pre-ingress shape: add_transaction -> TxQueue directly.
+        self.mempool = None
+        if _primary is not None:
+            # ONE admission pool per node: admit() routes each tx to
+            # its hash-assigned lane's drain heap, and every lane
+            # drains only its own heap (_create_batch) — the per-lane
+            # ledgers stay disjoint by construction
+            self.mempool = _primary.mempool
+        elif config.mempool_capacity > 0:
+            from cleisthenes_tpu_torch.core.mempool import Mempool
+
+            self.mempool = Mempool(
+                capacity=config.mempool_capacity,
+                client_cap=config.mempool_client_cap,
+                seen_cap=config.mempool_seen_cap,
+                retry_after_ms=config.mempool_retry_after_ms,
+                seed=config.seed if config.seed is not None else 0,
+                on_evict=self._mempool_evicted,
+                lanes=config.lanes,
+            )
+        self.metrics.set_ingress(self._ingress_block)
+        self.metrics.set_lanes(self._lanes_block)
+        # committed-batch fan-out beyond the single on_commit slot:
+        # the ingress plane's subscription server registers here (one
+        # listener per live subscriber feed), while on_commit stays
+        # the transport host's private hook
+        self._commit_listeners: List[Callable[[int, Batch], None]] = []
+        # the ingress subscription server's live-feed gauge (None
+        # until a subscription server mounts)
+        self._subscriber_count: Optional[Callable[[], int]] = None
+        # -- dynamic membership (protocol.reconfig) ----------------------
+        # Versioned rosters: v0 is the construction-time roster; every
+        # later version installs from a committed RECONFIG ceremony.
+        # Epoch-scoped state resolves through roster_for(epoch); the
+        # self.members/self.keys/self.tpke/self.coin fields above track
+        # the ACTIVE version (swapped at the activation boundary).
+        from cleisthenes_tpu_torch.core.member import (
+            Member as _Member,
+            RosterSchedule,
+            RosterVersion,
+        )
+        from cleisthenes_tpu_torch.protocol.reconfig import ReconfigManager
+
+        genesis = RosterVersion(
+            # a joiner's base version is the cluster's CURRENT one:
+            # the next RECONFIG it discovers must extend it
+            version=roster_version_base,
+            activation_epoch=0,
+            members=tuple(_Member(id=m) for m in self.members),
+        )
+        self.rosters = RosterSchedule(genesis)
+        v0_local = node_id in self._member_set
+        self._views: Dict[int, _RosterView] = {
+            genesis.version: _RosterView(
+                genesis,
+                config,
+                self.members,
+                keys if v0_local else None,
+                self.crypto,
+                self.tpke if v0_local else None,
+                self.coin if v0_local else None,
+            )
+        }
+        self._active_version = genesis.version
+        # set True when this node's id leaves the active roster: it
+        # orders its last epoch at the boundary and parks (serving
+        # CATCHUP until peers tear it down)
+        self._retired_self = False
+        # (activation_epoch, retired_ids, new_view): armed at version
+        # install, fired when the SETTLED frontier crosses the
+        # boundary — retired pair keys drop, broadcast set narrows,
+        # transports tear down dial state (on_peer_retired)
+        self._pending_teardown: Optional[tuple] = None
+        # transport hooks (set by ValidatorHost / harnesses): called
+        # at reconfig discovery with a joiner's (id, "ip:port") so the
+        # dial layer opens a lane, and at teardown with a retiree's id
+        self.on_peer_added: Optional[Callable[[str, str], None]] = None
+        self.on_peer_retired: Optional[Callable[[str], None]] = None
+        self._reconfig = ReconfigManager(self)
+        self.metrics.set_reconfig(lambda: self._active_version)
+        # CATCHUP: epoch -> sender -> response body.  Epochs adopt in
+        # order at the commit frontier, each on f+1 identical bodies
+        # (>= 1 honest sender => the true committed batch).
+        self._catchup_tallies: Dict[int, Dict[str, bytes]] = {}
+        # ordered-frontier CATCHUP tallies (COrd bodies), the
+        # two-frontier twin of the plaintext tallies above
+        self._catchup_ord_tallies: Dict[int, Dict[str, bytes]] = {}
+        self._last_catchup_request: Optional[int] = None
+        self._farahead_sightings = 0
+        # reduced-quorum stall watchdog state: inbound-ingest tick
+        # (any serve_wave/serve_request call), the tick value seen at
+        # the previous idle callback, and the per-stuck-frontier
+        # forced-chase budget (CATCHUP_STALL_BUDGET)
+        self._idle_rx = 0
+        self._idle_rx_seen = -1
+        self._stall_frontier = -1
+        self._stall_nudges = 0
+        # serving-side guard state (all counted, never clocked):
+        # sender -> end of the last window served (its next request
+        # must reach it to be served unconditionally); sender ->
+        # remaining non-advancing repeat serves; sender -> the last
+        # from_epoch it asked for (re-served when its link heals)
+        self._catchup_floor: Dict[str, int] = {}
+        self._catchup_repeats: Dict[str, int] = {}
+        self._catchup_last_req: Dict[str, int] = {}
+        # sender -> (next_epoch, limit): plaintext continuation owed
+        # after a window we could only answer with COrd bodies (the
+        # epochs were ordered here but not yet settled).  Pushed as we
+        # settle — the requester's repeat budget is spent by then and
+        # budgets re-arm only on ordering advances, so without the
+        # push a quiescent cluster wedges.  ``limit`` is fixed at
+        # serve time, so one request never buys an unbounded stream.
+        self._catchup_plain_owed: Dict[str, Tuple[int, int]] = {}
+        # sender -> from_epoch of a request we could serve NOTHING for
+        # (it asked at our own frontier): re-served when settlement
+        # advances past it.  Without the park, a requester exactly one
+        # epoch behind at quiescence wedges — its per-frontier dedup
+        # never re-asks and no traffic renudges it (the dynamic-
+        # membership joiner chasing the activation boundary hits this
+        # on its final window).  One entry per sender, one window per
+        # settlement advance: no amplification beyond a normal serve.
+        self._catchup_parked: Dict[str, int] = {}
+        # durable committed-batch log (core.ledger.BatchLog): restore
+        # the committed history + epoch counter + dup-filter on restart
+        self.batch_log = batch_log
+        if batch_log is not None and self.trace is not None:
+            batch_log.trace = self.trace  # WAL appends on our timeline
+        self._commits_since_ckpt = 0
+        if batch_log is not None and batch_log.last_epoch is not None:
+            # seed the dup-filter from the last checkpoint (if any) and
+            # fold only the batches logged after it; the full batch
+            # history is still replayed for catch-up serving
+            self._reconfig.replaying = True
+            ckpt_epoch = -1
+            ckpt = batch_log.last_checkpoint
+            if ckpt is not None:
+                ckpt_epoch, history = ckpt
+                for seen in history:
+                    self._remember_committed(set(seen))
+            for epoch, batch in batch_log.replay():
+                self.committed_batches.append(batch)
+                if epoch > ckpt_epoch:
+                    self._remember_committed(set(batch.tx_list()))
+                # re-derive the reconfig plane (RECONFIG + dealing txs
+                # are ordinary committed txs): roster versions, key
+                # material and activation boundaries replay
+                # deterministically from the batch content alone
+                self._reconfig.on_batch_settled(epoch, batch)
+            self.epoch = batch_log.last_epoch + 1
+        if (
+            self._two_frontier
+            and batch_log is not None
+            and batch_log.last_ordered_epoch is not None
+        ):
+            # ordered-ahead epochs (COrd records with no CLOG yet — a
+            # crash landed between order and settle): re-enter them
+            # into the settler as settle-only states.  The ordering is
+            # NEVER re-run; the plaintext arrives via the re-issued
+            # dec-share exchange (every restarted node re-broadcasts
+            # its own shares from the settler) and/or CLOG catch-up
+            # from peers that already settled.
+            for oepoch, body in batch_log.replay_ordered():
+                if oepoch < self.epoch:
+                    continue  # its CLOG follows in the log: settled
+                _e, output = decode_ordered_body(body)
+                es = _EpochState(None, self.roster_for(oepoch))
+                es.proposed = True
+                es.output = output
+                es.ordered = True
+                self._epochs[oepoch] = es
+                self._ordered_bodies[oepoch] = body
+                self.epoch = oepoch + 1
+        if batch_log is not None:
+            # leave replay mode: cross-check the re-derived roster
+            # schedule against the WAL's RCFG records, re-deal if a
+            # ceremony is still pending, and fast-forward the ACTIVE
+            # roster to whatever version self.epoch runs under
+            self._reconfig.after_replay()
+            self._maybe_activate_roster()
+            self._maybe_teardown_retired()
+        # -- horizontal shard-out: sibling lanes + the merge ------------
+        # The lane-0 primary builds its S-1 sibling lane instances
+        # here, so every external construction site (hosts, clusters,
+        # harnesses) stays single-object: the primary IS the node.
+        # Siblings share the primary's hub, coalescer, mempool and
+        # trace recorder; each gets its own lane view of the WAL
+        # (lane-tagged record streams in the same file) and replays
+        # its own ordered-unsettled window independently.
+        if lane == 0 and config.lanes > 1:
+            from cleisthenes_tpu_torch.core.merge import MergeCursor
+
+            for k in range(1, config.lanes):
+                self.lanes.append(
+                    HoneyBadger(
+                        config=config,
+                        node_id=node_id,
+                        member_ids=member_ids,
+                        keys=keys,
+                        out=out,
+                        auto_propose=auto_propose,
+                        batch_log=(
+                            None
+                            if batch_log is None
+                            else batch_log.lane_view(k)
+                        ),
+                        hub=self.hub,
+                        tx_parse_memo=tx_parse_memo,
+                        joining=joining,
+                        roster_version_base=roster_version_base,
+                        lane=k,
+                        _primary=self,
+                    )
+                )
+            # the deterministic total-order merge over the S settled
+            # lane streams; restart replay re-seeds the emitted prefix
+            # WITHOUT firing commit listeners (matching single-lane
+            # replay, which never re-fires on_commit)
+            self._merge = MergeCursor(config.lanes)
+            for k, hb in enumerate(self.lanes):
+                for e, b in enumerate(hb.committed_batches):
+                    self._merge.push(k, e, b)
+            self._merge.drain()
+
+    def _remember_committed(self, seen: Set[bytes]) -> None:
+        """Fold one epoch's committed txs into the bounded duplicate
+        filter (shared by live commits and restart replay)."""
+        self._committed_history.append(seen)
+        self._committed_filter |= seen
+        while len(self._committed_history) > COMMITTED_MEMORY_EPOCHS:
+            self._committed_filter -= self._committed_history.pop(0)
+
+    # -- public API (reference honeybadger.go:36-59) -----------------------
+
+    def add_transaction(self, tx: bytes) -> None:
+        """Reference honeybadger.go:52-54.  Under lane shard-out the
+        primary routes each tx to its hash-assigned lane's queue (the
+        same ``lane_of`` partition admission uses), so direct pushes
+        and mempool-admitted txs land in the same lane."""
+        if not isinstance(tx, (bytes, bytearray)):
+            raise TypeError("transactions are opaque bytes")
+        tx = bytes(tx)
+        if self._merge is not None:
+            from cleisthenes_tpu_torch.core.merge import lane_of
+            from cleisthenes_tpu_torch.core.mempool import tx_digest
+
+            seed = self.config.seed if self.config.seed is not None else 0
+            self.lanes[lane_of(seed, tx_digest(tx), self.config.lanes)].que.push(tx)
+            return
+        self.que.push(tx)
+
+    # -- ingress plane (core.mempool + transport.ingress) ------------------
+
+    def submit_ingress(self, client_id: str, fee: int, tx: bytes):
+        """Admit one client transaction through the mempool (the
+        ingress plane's policy call; transport/ingress.py wraps the
+        verdict in an IngressAckPayload).  Requires a mounted mempool
+        (Config.mempool_capacity > 0)."""
+        if self.mempool is None:
+            raise RuntimeError(
+                "no mempool mounted (Config.mempool_capacity=0)"
+            )
+        if not isinstance(tx, (bytes, bytearray)):
+            raise TypeError("transactions are opaque bytes")
+        verdict = self.mempool.admit(bytes(tx), client_id, fee)
+        if self.trace is not None:
+            self.trace.instant(
+                "ingress", "admit", status=verdict.status, fee=fee
+            )
+        return verdict
+
+    def _mempool_evicted(self, digest: bytes, client_id: str) -> None:
+        """Mempool on_evict hook: surface priority evictions on the
+        flight-recorder timeline (the counter itself lives in the
+        mempool and reaches snapshot()["ingress"] via the provider)."""
+        if self.trace is not None:
+            self.trace.instant(
+                "ingress", "evict", digest=digest[:4].hex()
+            )
+
+    def _ingress_block(self) -> Dict[str, object]:
+        """snapshot()["ingress"] provider: mempool admission tallies
+        plus the subscription gauge (zeroed keys when no mempool /
+        no subscription server is mounted)."""
+        out: Dict[str, object] = {}
+        if self.mempool is not None:
+            s = self.mempool.stats()
+            out.update(
+                submitted=s["submitted"],
+                admitted=s["admitted"],
+                rejected=s["rejected"],
+                retried=s["retried"],
+                deduped=s["deduped"],
+                evicted=s["evicted"],
+                mempool_depth=s["depth"],
+            )
+        if self._subscriber_count is not None:
+            out["subscribers"] = self._subscriber_count()
+        return out
+
+    def _lanes_block(self) -> Dict[str, object]:
+        """snapshot()["lanes"] provider: per-lane frontier gauges,
+        the merged settled frontier, and the admission partition's
+        skew witness.  On the lane-0 primary the lists span all S
+        lanes; at lanes=1 they are one-element (the schema-stable
+        single-lane shape)."""
+        lanes = self.lanes
+        fill = (
+            list(self.mempool.lane_fill())
+            if self.mempool is not None
+            else [0] * len(lanes)
+        )
+        return {
+            "lanes": len(lanes),
+            "merge_frontier": self.merged_settled_frontier,
+            "ordered_epochs": [hb.epoch for hb in lanes],
+            "settled_epochs": [
+                len(hb.committed_batches) for hb in lanes
+            ],
+            "lane_fill": fill,
+            "partition_skew": (max(fill) - min(fill)) if fill else 0,
+        }
+
+    def set_subscriber_provider(
+        self, provider: Optional[Callable[[], int]]
+    ) -> None:
+        """The ingress subscription server's live-feed gauge."""
+        self._subscriber_count = provider
+
+    def add_commit_listener(
+        self, fn: Callable[[int, Batch], None]
+    ) -> None:
+        """Register a committed-batch listener beyond the single
+        on_commit slot (the subscription server's live tail).  Fired
+        after on_commit, in registration order, at every settlement
+        (local or adopted via CATCHUP), strictly in epoch order."""
+        self._commit_listeners.append(fn)
+
+    def _notify_commit(self, epoch: int, batch: Batch) -> None:
+        """The single settlement fan-out point: retire the batch's txs
+        from the mempool's in-flight accounting, then fire on_commit
+        and every registered listener.  Under lane shard-out the
+        settlement instead feeds the primary's merge cursor; listeners
+        fire from the MERGED total order (with merged sequence
+        numbers), never per lane."""
+        if self.mempool is not None:
+            self.mempool.mark_settled(batch.tx_list())
+        if self._primary is not None:
+            self._primary._on_lane_settled(self.lane, epoch, batch)
+            return
+        if self._merge is not None:
+            self._on_lane_settled(0, epoch, batch)
+            return
+        if self.on_commit is not None:
+            self.on_commit(epoch, batch)
+        for fn in self._commit_listeners:
+            fn(epoch, batch)
+
+    def _on_lane_settled(self, lane: int, epoch: int, batch: Batch) -> None:
+        """Primary-side merge feed: one lane settled one epoch.  Push
+        the slot, then emit every newly contiguous merged slot (a
+        pure function of the committed bytes — identical on every
+        honest node however the lanes' settlements interleave)."""
+        self._merge.push(lane, epoch, batch)
+        for seq, mlane, mepoch, mbatch in self._merge.drain():
+            if self.trace is not None:
+                self.trace.instant(
+                    "merge", "emit", seq=seq, lane=mlane, epoch=mepoch,
+                    txs=len(mbatch),
+                )
+            if self.on_commit is not None:
+                self.on_commit(seq, mbatch)
+            for fn in self._commit_listeners:
+                fn(seq, mbatch)
+
+    # -- merged total-order accessors (lane shard-out) ---------------------
+
+    @property
+    def merged_batches(self) -> List[Batch]:
+        """The settled batches in MERGED total order (== the per-lane
+        committed list at lanes=1): the ledger every cross-node
+        byte-identity comparison and subscription replay reads."""
+        return (
+            self.committed_batches
+            if self._merge is None
+            else self._merge.merged
+        )
+
+    @property
+    def merged_settled_frontier(self) -> int:
+        """Number of merge-emitted slots (== the settled epoch count
+        at lanes=1)."""
+        return (
+            len(self.committed_batches)
+            if self._merge is None
+            else self._merge.frontier
+        )
+
+    @property
+    def merged_ordered_frontier(self) -> int:
+        """Sum of the lanes' ordered frontiers (== ``self.epoch`` at
+        lanes=1): the ingress plane's ordered-work gauge."""
+        if self._merge is None:
+            return self.epoch
+        return sum(hb.epoch for hb in self.lanes)
+
+    def start_epoch(self, epoch: Optional[int] = None) -> None:
+        """Select a batch, encrypt it, and input it to this epoch's ACS
+        (the intended body of reference honeybadger.go:57-59 sendBatch).
+
+        ``epoch`` defaults to the commit frontier; the pipelining path
+        passes ``self.epoch + 1`` to propose ahead (BASELINE config 5).
+        A frontier-default call (``epoch=None`` — the external kick)
+        additionally tops up the K-deep in-flight window
+        (Config.pipeline_depth; no-op at depth 1).
+        """
+        try:
+            if epoch is None:
+                self._propose_into(self.epoch)
+                self._drive_pipeline()
+                for hb in self.lanes[1:]:
+                    # the external kick reaches every lane: siblings
+                    # propose into their own frontiers (empty batches
+                    # are fine — lanes run independent HBBFT streams)
+                    if not hb._retired_self:
+                        hb._propose_into(hb.epoch)
+                        hb._drive_pipeline()
+            else:
+                self._propose_into(epoch)
+        finally:
+            self._exit_turn()
+
+    def _propose_into(self, target: int) -> None:
+        """One epoch's proposal (the historical start_epoch body):
+        batch select, TPKE encrypt, ACS input.  Callers propose in
+        ascending epoch order — the per-node proposal RNG is a
+        stream, so the draw order is part of the deterministic
+        schedule (K-deep runs must consume it exactly like depth 1)."""
+        es = self._epoch_state(target)
+        if es is None or es.proposed:
+            return
+        es.proposed = True
+        self.metrics.epoch_proposed(target)
+        tr = self.trace
+        if tr is not None:
+            ahead = target - self.epoch
+            if ahead > 0:  # K-deep window position; frontier opens
+                tr.instant(
+                    "epoch", "open", epoch=target, ahead=ahead,
+                    **self._lane_kw,
+                )
+            else:  # keep the depth-1 event byte-stable
+                tr.instant("epoch", "open", epoch=target, **self._lane_kw)
+        t0 = 0.0 if tr is None else tr.now()
+        es.my_txs = self._create_batch()
+        # the EPOCH's key set (an epoch past an activation
+        # boundary encrypts under the reshared key even while the
+        # proposer's active roster is still the old one)
+        view = es.view
+        ct = view.tpke.encrypt(serialize_txs(es.my_txs))
+        if tr is not None:
+            tr.complete(
+                "tpke", "encrypt", t0, epoch=target, txs=len(es.my_txs)
+            )
+        es.acs.input(
+            serialize_ciphertext(ct, view.keys.tpke_pub.group)
+        )
+
+    @property
+    def _pipeline_depth(self) -> int:
+        """The K-deep protocol-plane window width: epochs
+        [self.epoch, self.epoch + K - 1] may run RBC/BBA
+        concurrently.  Depth is an ordered-frontier concept, so it
+        collapses to 1 (lockstep) whenever the two-frontier split is
+        off — the epoch_pipelining ARM flag gates the whole plane."""
+        return self.config.pipeline_depth if self._two_frontier else 1
+
+    def _drive_pipeline(self) -> None:
+        """Top up the K-deep in-flight window (Config.pipeline_depth):
+        propose into epochs [self.epoch + 1, self.epoch + K - 1] so
+        their RBC/BBA runs concurrently with the frontier epoch's,
+        while ordering itself still advances strictly in epoch order
+        (_maybe_order) and parks at decrypt_lag_max.  Per-epoch
+        propose rule matches _advance_epoch's: local work pending, or
+        the epoch already live from peer traffic.  Ascending order
+        (the proposal-RNG stream rule, see _propose_into).  No-op at
+        depth 1 — the byte-identical comparison arm."""
+        depth = self._pipeline_depth
+        if (
+            depth <= 1
+            or self._pipeline_active
+            or not self.auto_propose
+            or self._retired_self
+        ):
+            return
+        self._pipeline_active = True
+        try:
+            for e in range(self.epoch + 1, self.epoch + depth):
+                es = self._epochs.get(e)
+                if es is not None and es.proposed:
+                    continue
+                if self._queue_work() or es is not None:
+                    self._propose_into(e)
+        finally:
+            self._pipeline_active = False
+
+    def maybe_follow_epoch(self, epoch: int, es: _EpochState) -> None:
+        """Follow-the-epoch — THE shared rule of both routing arms
+        (the scalar `_serve_payload` chain and the WaveRouter call
+        here, so the arms' follow windows can never drift apart):
+        peer traffic showed an epoch inside our pipeline window
+        [self.epoch, self.epoch + depth - 1] running without our
+        proposal — contribute it (every correct node must propose or
+        ACS never reaches n-f ones).  Any unproposed epochs BELOW it
+        propose first: the K-deep window admits traffic for
+        self.epoch + k before self.epoch's own proposal, and the
+        proposal-RNG stream must still be consumed in epoch order.
+        The turn exit mirrors the historical start_epoch() call here,
+        so the depth-1 flush schedule stays byte-identical."""
+        if not (
+            self.auto_propose
+            and self.epoch <= epoch < self.epoch + self._pipeline_depth
+            and not es.proposed
+        ):
+            return
+        try:
+            for e in range(self.epoch, epoch + 1):
+                st = self._epochs.get(e)
+                if st is None or not st.proposed:
+                    self._propose_into(e)
+        finally:
+            self._exit_turn()
+
+    def _queue_work(self) -> bool:
+        """Is there local work to propose?  Queue depth OR mempool
+        entries awaiting their drain into the TxQueue seam — the
+        propose-gating twin of pending_tx_count."""
+        if len(self.que) > 0:
+            return True
+        return self._staged_count() > 0
+
+    def _staged_count(self) -> int:
+        """Mempool entries awaiting THIS lane's drain (the whole pool
+        at lanes=1 — the historical single-heap read)."""
+        if self.mempool is None:
+            return 0
+        if self.config.lanes > 1:
+            return self.mempool.pending_count(self.lane)
+        return self.mempool.pending_count()
+
+    def pending_tx_count(self) -> int:
+        own = len(self.que) + self._staged_count()
+        for hb in self.lanes[1:]:  # primary fans in; empty otherwise
+            own += hb.pending_tx_count()
+        return own
+
+    def outstanding_tx_count(self) -> int:
+        """Queue depth PLUS transactions absorbed into in-flight
+        (proposed but not yet committed/settled) epochs' own
+        proposals — the work-outstanding signal the SLO stall
+        watchdog reads.  The K-deep pipeline window can drain the
+        whole queue into its in-flight epochs' ``my_txs``, and a
+        stalled node must still read as holding pending work.
+        Called from observability threads (the SLO watchdog's
+        pending_fn): list() snapshots the dict against concurrent
+        protocol-thread mutation.  Mempool entries still awaiting
+        drain count too — client-acked work invisible to the queue
+        and to every epoch's my_txs must still trip the
+        queue-backpressure detector."""
+        total = self._staged_count() + len(self.que) + sum(
+            len(es.my_txs)
+            for es in list(self._epochs.values())
+            if es.proposed and not es.committed
+        )
+        for hb in self.lanes[1:]:  # primary fans in; empty otherwise
+            total += hb.outstanding_tx_count()
+        return total
+
+    @property
+    def _two_frontier(self) -> bool:
+        """Two-frontier commit (Config.order_then_settle): self.epoch
+        is the ORDERED frontier (the epoch the live protocol runs in);
+        the SETTLED frontier is len(self.committed_batches) — plain-
+        text durable, dedup applied, on_commit fired.  The split is
+        the epoch-pipelining mechanism upgraded, so the
+        ``epoch_pipelining=False`` strict-sequencing diagnostic arm
+        keeps its meaning: with pipelining off, commit stays coupled.
+        A property (not cached) because tests toggle both flags on a
+        constructed node."""
+        cfg = self.config
+        return cfg.order_then_settle and cfg.epoch_pipelining
+
+    @property
+    def settled_epoch(self) -> int:
+        """The SETTLED frontier: epochs whose plaintext batch is
+        durable, dedup-filtered and delivered (on_commit).  Equal to
+        the ordered frontier ``self.epoch`` on the coupled path; at
+        most Config.decrypt_lag_max behind it in two-frontier mode."""
+        return len(self.committed_batches)
+
+    def ordered_record(self, epoch: int) -> Optional[bytes]:
+        """The COrd body this node ordered for ``epoch`` (None when the
+        epoch arrived via plaintext catch-up without ever ordering
+        locally) — the bytes the cross-node byte-identity invariant
+        compares and ordered CATCHUP serves."""
+        return self._ordered_bodies.get(epoch)
+
+    # -- dynamic membership (protocol.reconfig) ----------------------------
+
+    @property
+    def group(self):
+        """The crypto group every roster version of this deployment
+        shares (the modulus seam: reconfig ceremonies deal over the
+        same group the genesis keys use)."""
+        return self.keys.tpke_pub.group
+
+    @property
+    def active_view(self) -> _RosterView:
+        """The ACTIVE roster version's resolved view (the one
+        ``self.epoch`` runs under after every boundary crossing)."""
+        return self._views[self._active_version]
+
+    @property
+    def roster_version(self) -> int:
+        return self._active_version
+
+    def roster_for(self, epoch: int) -> _RosterView:
+        """Resolve the roster version an epoch runs under — THE
+        accessor every epoch-scoped n/f/key read goes through
+        (staticcheck DET005 gates direct construction-time reads)."""
+        return self._views[self.rosters.version_for(epoch).version]
+
+    def on_reconfig_discovered(self, spec, joiners) -> None:
+        """A RECONFIG transaction settled: install the transition's
+        pair keys, widen the broadcast set to old ∪ new (pre-
+        activation epochs still need the retirees; ceremony traffic
+        and post-activation epochs need the joiners), and open dial/
+        serving lanes toward the joiners."""
+        pair_keys = self._reconfig.joiner_pair_keys(spec)
+        if self._authenticator is not None:
+            for peer in sorted(pair_keys):
+                self._authenticator.set_peer_key(peer, pair_keys[peer])
+            # MAC rotation step 1: stage the surviving pairs' fresh
+            # version keys (inbound verifies under either key from
+            # here; signing switches at the activation boundary)
+            staged = self._reconfig.rotation_pair_keys(spec)
+            for peer in sorted(staged):
+                self._authenticator.stage_peer_key(peer, staged[peer])
+        old_ids = set(self.active_view.member_ids)
+        if self.node_id not in old_ids:
+            return  # a joiner widens nothing: it adopts, then activates
+        union = sorted(old_ids | set(spec.member_ids))
+        self._set_broadcast_members(union)
+        addr_of = {m[0]: (m[1], m[2]) for m in spec.members}
+        for j in joiners:
+            # a joiner's very first CATCHUP request may predate our
+            # knowledge of it (MAC-rejected): remember a standing
+            # from-0 request so the serving side initiates
+            self._catchup_last_req.setdefault(j, 0)
+            if self.on_peer_added is not None:
+                # async transports (gRPC): the dial layer opens the
+                # lane and fires peer_reconnected on success, which
+                # serves the standing request
+                ip, port = addr_of[j]
+                self.on_peer_added(j, f"{ip}:{port}")
+            elif not self._reconfig.replaying:
+                # in-proc transports deliver immediately: serve the
+                # joiner's bootstrap window now
+                self._handle_catchup_req(
+                    j, CatchupReqPayload(from_epoch=0)
+                )
+
+    def install_roster_version(self, rv, keys, spec) -> None:
+        """A reshare ceremony finalized: bind the version's runtime
+        view, arm the retirement teardown, and write the RCFG WAL
+        record — all strictly before any epoch orders under it."""
+        import dataclasses as _dc
+
+        cfg = _dc.replace(self.config, n=rv.n, f=None)
+        local = self.node_id in rv.member_ids
+        if local and keys is None:
+            raise ValueError("member view installed without keys")
+        crypto = (
+            self.crypto
+            if cfg.n == self.config.n and cfg.f == self.config.f
+            else get_backend(cfg)
+        )
+        view = _RosterView(
+            rv,
+            cfg,
+            rv.member_ids,
+            keys,
+            crypto,
+            crypto.tpke(keys.tpke_pub) if local else None,
+            crypto.coin(keys.coin_pub) if local else None,
+        )
+        self._views[rv.version] = view
+        self.rosters.install(rv)
+        prev = self.rosters.version_for(rv.activation_epoch - 1)
+        retired = sorted(
+            set(prev.member_ids) - set(rv.member_ids)
+        )
+        self._pending_teardown = (rv.activation_epoch, retired, view)
+        if self.trace is not None:
+            self.trace.instant(
+                "reconfig",
+                "install",
+                version=rv.version,
+                activation_epoch=rv.activation_epoch,
+            )
+        self.log.info(
+            "roster version installed",
+            version=rv.version,
+            activation_epoch=rv.activation_epoch,
+            n=rv.n,
+        )
+        if (
+            self.batch_log is not None
+            and not self._reconfig.replaying
+        ):
+            self.batch_log.append_reconfig(
+                rv.version,
+                rv.activation_epoch,
+                [(m.id, m.addr.ip, m.addr.port) for m in rv.members],
+                rv.key_material_digest,
+            )
+        # a laggard can have built epoch states PAST the boundary
+        # under the old roster before learning of the ceremony (it
+        # ordered ahead of its settled frontier): those states are
+        # wrong-view by construction and can never complete — drop
+        # them; the epochs re-enter via live traffic or CATCHUP
+        for e in sorted(self._epochs):
+            if (
+                e >= rv.activation_epoch
+                and self._epochs[e].view is not view
+            ):
+                del self._epochs[e]
+                self.hub.drop_scope((self.node_id, e))
+        # the boundary only activates when the frontier reaches it:
+        # if the cluster is otherwise quiescent, kick the epoch drive
+        # now (the _advance_epoch condition keeps it rolling to the
+        # switch) instead of wedging mid-transition until the next
+        # client transaction
+        if (
+            self.auto_propose
+            and not self._reconfig.replaying
+            and not self._retired_self
+            and self.epoch < rv.activation_epoch
+        ):
+            self.start_epoch()
+
+    def _maybe_activate_roster(self) -> None:
+        """Cross the activation boundary when the live frontier
+        reaches it: swap the ACTIVE view (keys, batch policy, metrics
+        identity).  Runs at every epoch advance; a restart replaying
+        far past a boundary crosses every intermediate version in
+        order."""
+        while True:
+            rv = self.rosters.version_for(self.epoch)
+            if rv.version == self._active_version:
+                return
+            nxt = None
+            for candidate in self.rosters:
+                if candidate.version == self._active_version + 1:
+                    nxt = candidate
+                    break
+            view = self._views[nxt.version]
+            self._active_version = nxt.version
+            self.metrics.reconfigs_total.inc()
+            if self.trace is not None:
+                self.trace.instant(
+                    "reconfig",
+                    "activate",
+                    version=nxt.version,
+                    epoch=self.epoch,
+                )
+            if not view.local:
+                # retired: order nothing further; keep serving
+                # CATCHUP and settling the pre-boundary epochs
+                self._retired_self = True
+                self.log.info(
+                    "retired from roster", version=nxt.version
+                )
+                continue
+            self._retired_self = False
+            prev_members = self.members
+            self.members = list(view.member_ids)
+            self._member_set = view.member_set
+            self.keys = view.keys
+            self.tpke = view.tpke
+            self.coin = view.coin
+            if self._authenticator is not None:
+                # MAC rotation step 2: signing switches to the staged
+                # version key for every surviving pair (no-op for a
+                # joiner, and for pairs with nothing staged — e.g.
+                # when a catch-up adopter's teardown already pinned
+                # the fresh keys)
+                for peer in view.member_ids:
+                    self._authenticator.promote_staged_key(peer)
+            self.b = max(self.config.batch_size, view.config.n)
+            # fan out to old ∪ new until the settled frontier crosses
+            # the boundary (teardown narrows to the new roster): the
+            # outgoing roster still needs our dec shares for pre-
+            # boundary epochs, and — the JOINER's case — our own
+            # post-boundary votes must reach ourselves and any
+            # co-joiner from the very first new-roster epoch, not
+            # only once settlement catches up.  If this boundary's
+            # teardown ALREADY fired (a catch-up adopter can settle
+            # past the boundary before its ordered frontier crosses
+            # it), the retirees' pair keys are gone — never re-widen
+            # to peers we can no longer sign for.
+            pt = self._pending_teardown
+            if pt is not None and pt[2] is view:
+                fanout = set(prev_members) | set(view.member_ids)
+            else:
+                fanout = set(view.member_ids)
+            self._set_broadcast_members(sorted(fanout))
+            self.log.info(
+                "roster activated",
+                version=nxt.version,
+                n=view.config.n,
+            )
+
+    def _maybe_teardown_retired(self) -> None:
+        """The settled frontier crossed an activation boundary: every
+        pre-boundary epoch is plaintext-durable, so the retirees'
+        duties are over — narrow the broadcast set to the new roster,
+        drop their pair keys, and tear down their transport lanes."""
+        pt = self._pending_teardown
+        if pt is None:
+            return
+        activation, retired, view = pt
+        if len(self.committed_batches) < activation:
+            return
+        self._pending_teardown = None
+        if not view.local:
+            return  # the retiree keeps its lanes for CATCHUP serving
+        self._set_broadcast_members(view.member_ids)
+        for peer in retired:
+            if self._authenticator is not None:
+                self._authenticator.drop_peer(peer)
+            if self.on_peer_retired is not None:
+                self.on_peer_retired(peer)
+        if self._authenticator is not None and view.keys is not None:
+            # MAC rotation step 3: pin every surviving pair to the
+            # version's fresh key (idempotent after the activation-
+            # time promote, and correct even when a catch-up
+            # adopter's settle crosses the boundary before its
+            # ordered frontier does) and drop the alternates — a
+            # frame MAC'd under a pre-rotation key is rejected from
+            # here on
+            for peer in view.member_ids:
+                self._authenticator.set_peer_key(
+                    peer, view.keys.mac_keys[peer]
+                )
+                self._authenticator.drop_alt_key(peer)
+        if retired and self.trace is not None:
+            self.trace.instant(
+                "reconfig",
+                "teardown",
+                version=view.rv.version,
+                retired=len(retired),
+            )
+
+    def _set_broadcast_members(self, member_ids) -> None:
+        """Swap the outbound fan-out set (coalescer + inner
+        broadcaster + the semantic-adversary wrapper when mounted)."""
+        ids = sorted(member_ids)
+        self._coalesce.set_members(ids)
+        behavior_out = getattr(self.out, "_inner", None)
+        set_members = getattr(behavior_out, "set_members", None)
+        if set_members is not None and behavior_out is not self._coalesce:
+            set_members(ids)
+        self.out._n = len(ids)
+
+    # -- batch policy (reference honeybadger.go:62-104) --------------------
+
+    def _create_batch(self) -> List[bytes]:
+        # the TxQueue seam: admitted client txs flow highest-fee-first
+        # from the mempool into the FIFO queue AHEAD of candidate
+        # polling, so selection below (and its committed-filter dedup)
+        # is unchanged whether a tx arrived via add_transaction or
+        # through the ingress admission pipeline
+        if self.mempool is not None:
+            # each lane drains ONLY its own heap (lane 0 == the only
+            # heap at lanes=1): the partition is admission-time
+            self.mempool.drain_into(self.que, self.b, lane=self.lane)
+        candidates = self._load_candidate_txs(min(self.b, len(self.que)))
+        # the ACTIVE roster's width (b/n sampling follows the live n)
+        n = self.active_view.config.n
+        return self._select_random_txs(candidates, self.b // n)
+
+    def _load_candidate_txs(self, count: int) -> List[bytes]:
+        """Poll up to ``count`` txs off the queue head
+        (honeybadger.go:75-86), lazily dropping any that already
+        committed in a recent epoch (duplicate submissions — filtered
+        here at poll time instead of rewriting the whole queue on
+        every commit)."""
+        out: List[bytes] = []
+        while len(out) < count and len(self.que):
+            tx = self.que.poll()
+            if tx not in self._committed_filter:
+                out.append(tx)
+        return out
+
+    def _select_random_txs(
+        self, candidates: List[bytes], count: int
+    ) -> List[bytes]:
+        """Uniformly sample ``count`` candidates; re-push the rest
+        (honeybadger.go:89-104 selectRandomTx + cleanUp)."""
+        picked_idx = set(
+            self._rng.sample(range(len(candidates)), min(count, len(candidates)))
+        )
+        picked = [tx for i, tx in enumerate(candidates) if i in picked_idx]
+        for i, tx in enumerate(candidates):  # cleanUp: restore the rest
+            if i not in picked_idx:
+                self.que.push(tx)
+        return picked
+
+    # -- transport integration (coalescing + idle hooks) -------------------
+
+    def transport_manages_idle(self) -> None:
+        """Called by a transport that promises to invoke ``on_idle()``
+        at its quiescence points (ChannelNetwork.run's drained-queue
+        phase; SerialDispatcher's empty-mailbox check).  Moves outbound
+        flushing and batched-crypto execution to those points, so one
+        hub flush + one bundle per receiver absorbs an entire message
+        wave.  ``Config.hub_wave_flush=False`` keeps the hub on the
+        pre-wave scalar discipline (flush per quorum event) — the
+        equivalence-test comparison arm; outbound coalescing still
+        moves to the idle callback either way."""
+        self._transport_managed = True
+        for hb in self.lanes[1:]:  # siblings drain at OUR idle points
+            hb._transport_managed = True
+        if self.config.hub_wave_flush:
+            self.hub.defer = True
+
+    def flush_outbound(self) -> None:
+        self._coalesce.flush()
+
+    def on_idle(self) -> None:
+        """Transport idle callback: run the crypto flush the wave
+        requested (quorum events only record the want in deferred
+        mode), then ship everything it produced."""
+        tr = self.trace
+        if tr is not None and self._trace_wave_msgs:
+            # one wave boundary: how many envelopes this quiescence
+            # point absorbed (the dispatch-amortization denominator)
+            tr.instant("transport", "wave", msgs=self._trace_wave_msgs)
+            self._trace_wave_msgs = 0
+        # lane fan-out: ``self.lanes`` is [self] at lanes=1, so the
+        # single-lane call order below is byte-identical to the
+        # historical body.  All S lanes' drains run around ONE hub
+        # flush and ONE coalescer flush — the dispatch-flatness
+        # requirement (S lanes share the wave's dispatches instead of
+        # multiplying them).
+        lanes = self.lanes
+        self._drive_lane_lockstep()
+        for hb in lanes:
+            hb._drain_coin_issues()
+            # the trailing settler (two-frontier mode) runs HERE, off
+            # the ordered critical path: issue pending dec shares,
+            # probe combines, settle ready epochs in order.  It runs
+            # before the hub flush so any CP-verification work it
+            # requests rides this wave's batched dispatch, not the
+            # next one's.
+            hb._drive_settler()
+            # top up the K-deep in-flight window before the hub flush:
+            # fresh proposals' RBC traffic joins this turn's bundle
+            hb._drive_pipeline()
+        self.hub.run_deferred()
+        for hb in lanes:
+            # the flush itself can advance rounds and queue NEW coin
+            # issues (coin reveal -> advance -> next round's aux
+            # quorum); drain again so they ride this turn's bundle,
+            # not the next inbound message's
+            hb._drain_coin_issues()
+            # eagerly staged dec shares (epochs ordered during this
+            # wave, including inside run_deferred) piggyback on this
+            # flush
+            hb._drain_dec_issues()
+            hb._maybe_chase_stall()
+        self._coalesce.flush()
+
+    def _drive_lane_lockstep(self) -> None:
+        """Drag lagging lanes toward the fastest lane's ordered
+        frontier (primary only, lanes > 1).  The merged total order
+        enumerates slots epoch-major, so a lane that quiesces epochs
+        behind its siblings parks the merge; proposing (possibly
+        empty) epochs into the gap fills the slots.  Every honest
+        node runs the same rule, so the catch-up epochs reach their
+        n-f proposal quorums.  Terminates: lanes at the max frontier
+        are never kicked."""
+        if self._merge is None or not self.auto_propose:
+            return
+        lanes = self.lanes
+        target = max(hb.epoch for hb in lanes)
+        for hb in lanes:
+            if hb.epoch >= target or hb._retired_self:
+                continue
+            es = hb._epochs.get(hb.epoch)
+            if es is None or not es.proposed:
+                hb._propose_into(hb.epoch)
+
+    def _exit_turn(self) -> None:
+        """Self-draining mode: every public entry point leaves no
+        buffered outbound behind (transports without idle callbacks
+        would otherwise strand the turn's messages).  ``self.lanes``
+        is [self] at lanes=1 — the historical body, byte-identical."""
+        if not self._transport_managed:
+            self._drive_lane_lockstep()
+            for hb in self.lanes:
+                hb._drain_coin_issues()
+                hb._drive_settler()
+                hb._drive_pipeline()
+                hb._drain_dec_issues()
+            self._coalesce.flush()
+
+    def _queue_coin_issue(self, bba, rnd: int) -> None:
+        """BBA coin_issue_sink: park the (instance, round) want; the
+        turn-exit / idle drain issues every parked share in ONE
+        batched exponentiation dispatch instead of 4 scalar host exps
+        per instance (a vote wave triggers a whole roster's worth of
+        aux quorums at once).  Under ``Config.egress_columnar`` the
+        want ALSO stages into the CryptoHub's coin-issue column at
+        queue time — during the message wave — so the idle phase's
+        FIRST drain executes the whole roster's wants (shared-hub
+        cluster) in one ``ops.coin.share_batch`` dispatch and later
+        drains claim precomputed shares."""
+        self._pending_coin_issues.append((bba, rnd))
+        if self.config.egress_columnar:
+            # per-instance key material: a wave can span an activation
+            # boundary (dynamic membership), so each BBA issues under
+            # ITS epoch's coin key/share — the group is deployment-
+            # wide, so the whole mixed pool still batches into one
+            # dispatch
+            pub, base, context = bba.coin.group_params(bba._coin_id(rnd))
+            sec = bba.coin_secret
+            self.hub.stage_coin_issue(
+                self,
+                (bba, rnd),
+                (sec, base, context,
+                 pub.verification_keys[sec.index - 1]),
+                self.group,
+            )
+
+    def _drain_coin_issues(self) -> None:
+        pend = self._pending_coin_issues
+        if not pend:
+            return
+        tr = self.trace
+        t0 = 0.0 if tr is None else tr.now()
+        self._pending_coin_issues = []
+        if self.config.egress_columnar:
+            # wave-batched coin kernel: the hub's coin
+            # column hands back this node's shares, dispatching the
+            # WHOLE staged pool natively iff some of ours are still
+            # pending — broadcast site, order, and timing identical
+            # to the scalar arm below
+            for (bba, rnd), share in self.hub.take_coin_issues(self):
+                bba.broadcast_coin_share(rnd, share)
+            if tr is not None:
+                tr.complete("coin", "issue_batch", t0, n=len(pend))
+            return
+        # per-instance key material: a wave can span an activation
+        # boundary (dynamic membership), so each BBA issues under ITS
+        # epoch's coin key/share — the group is deployment-wide, so
+        # the whole mixed wave still batches into one dispatch
+        group = self.group
+        items = []
+        metas = []
+        for bba, rnd in pend:
+            # halted BBAs still contribute: the issue was queued when
+            # the aux quorum fired, and withholding the (public,
+            # deterministic) share after a TERM decision can leave
+            # slower peers one share short of the coin threshold
+            pub, base, context = bba.coin.group_params(bba._coin_id(rnd))
+            sec = bba.coin_secret
+            items.append(
+                (sec, base, context,
+                 pub.verification_keys[sec.index - 1])
+            )
+            metas.append((bba, rnd))
+        if not items:
+            return
+        # the scalar comparison arm counts its native dispatches on
+        # the same hub counters the columnar arm uses, so
+        # coin_dispatches_per_epoch compares like for like across arms
+        self.hub.coin_issue_batches += 1
+        self.hub.coin_issue_items += len(items)
+        shares = issue_shares_batch(
+            items,
+            group=group,
+            backend=self.crypto.engine_backend,
+            device=self.crypto.device,
+        )
+        for (bba, rnd), share in zip(metas, shares):
+            bba.broadcast_coin_share(rnd, share)
+        if tr is not None:
+            tr.complete("coin", "issue_batch", t0, n=len(items))
+
+    # -- message demux (transport Handler) ---------------------------------
+
+    def serve_wave(self, msgs) -> None:
+        """Wave-ingest entry (Config.wave_routing): one call carries a
+        whole delivery wave of verified, decoded frames; the router
+        demuxes them into typed columns and invokes one batch handler
+        per (message kind, wave) — the per-payload scalar chain below
+        stays live as the byte-equivalence comparison arm."""
+        try:
+            self._idle_rx += len(msgs)
+            if self.trace is not None:
+                self._trace_wave_msgs += len(msgs)
+            self._router.route(msgs)
+        finally:
+            self._exit_turn()
+
+    def serve_request(self, msg: Message) -> None:
+        try:
+            self._idle_rx += 1
+            if self.trace is not None:
+                self._trace_wave_msgs += 1
+            payload = msg.payload
+            if isinstance(payload, BundlePayload):
+                items = payload.items
+                self.metrics.msgs_in.inc(_logical_count_many(items))
+                serve = self._serve_payload
+                sender = msg.sender_id
+                for item in items:
+                    serve(sender, item)
+            else:
+                self.metrics.msgs_in.inc(_logical_count(payload))
+                self._serve_payload(msg.sender_id, payload)
+        finally:
+            self._exit_turn()
+
+    def _serve_payload(self, sender_id: str, payload) -> None:
+        # CATCHUP traffic is deliberately NOT epoch-window gated: it
+        # exists exactly for nodes outside the window (CatchupReq has
+        # no ``epoch`` field at all — it carries a range start)
+        pcls = payload.__class__
+        if pcls is LanePayload:
+            # lane shard-out demux: lane-k frames route into the
+            # lane-k sibling instance (only the lane-0 primary ever
+            # receives these — lane 0 traffic is never wrapped, so
+            # the single-lane build never reaches this branch)
+            lanes = self.lanes
+            l = payload.lane
+            if self.lane == 0 and 0 < l < len(lanes):
+                sib = lanes[l]
+                sib._idle_rx += 1  # the sibling's stall-watchdog clock
+                sib._serve_payload(sender_id, payload.inner)
+            return
+        if pcls is CatchupReqPayload:
+            self._handle_catchup_req(sender_id, payload)
+            return
+        if pcls is CatchupRespPayload:
+            self._handle_catchup_resp(sender_id, payload)
+            return
+        if pcls is CatchupOrdPayload:
+            self._handle_catchup_ord(sender_id, payload)
+            return
+        if pcls is ResharePayload:
+            # reconfig gossip (epoch-unscoped like CATCHUP): staged
+            # by the reshare plane; for a joiner it doubles as the
+            # "a ceremony is underway, chase the log" nudge
+            if self._reconfig.known_member(sender_id):
+                self._reconfig.on_reshare_payload(sender_id, payload)
+            return
+        epoch = getattr(payload, "epoch", None)
+        if epoch is None:
+            return
+        # fast path: an existing state is by construction inside the
+        # window (stale ones are GC'd), so skip the bounds arithmetic
+        # that _epoch_state re-derives for every one of the O(N^2)
+        # payloads per wave
+        es = self._epochs.get(epoch) or self._epoch_state(epoch)
+        if es is None:  # outside the sliding window, or not a member
+            if epoch > self.epoch + EPOCH_HORIZON:
+                # peers are far ahead: we missed epochs, catch up
+                self._note_farahead()
+            elif (
+                epoch > self.epoch
+                and not self.roster_for(epoch).local
+            ):
+                # traffic for an epoch we cannot participate in
+                # (dynamic membership: a joiner watching the old
+                # roster run ahead of its adopted frontier): every
+                # sighting ticks the same traffic-clocked catch-up
+                # chase the far-ahead path uses
+                self._note_farahead()
+            return
+        cls = pcls
+        if cls is DecSharePayload:
+            self.metrics.handler_dispatches.inc()
+            self._handle_dec_share(
+                epoch, es, sender_id, payload.proposer, payload.index,
+                payload.d, payload.e, payload.z,
+            )
+            return
+        if cls is DecShareBatchPayload:
+            self.metrics.handler_dispatches.inc()
+            self._handle_dec_share_batch(epoch, es, sender_id, payload)
+            return
+        if cls in _ACS_PAYLOADS:
+            if es.acs is None:
+                # settle-only state (two-frontier mode: the ordering
+                # is already durable) — consensus traffic for it is
+                # stale by definition, only dec shares still matter
+                return
+            # follow the epoch: a peer is running it, so contribute our
+            # (possibly empty) proposal too (the shared rule of both
+            # routing arms — window and RNG-order discipline live in
+            # maybe_follow_epoch)
+            self.maybe_follow_epoch(epoch, es)
+            self.metrics.handler_dispatches.inc()
+            if cls is BbaBatchPayload:
+                es.acs.handle_bba_batch(sender_id, payload)
+            elif cls is CoinBatchPayload:
+                es.acs.handle_coin_batch(sender_id, payload)
+            elif cls is EchoBatchPayload:
+                es.acs.handle_echo_batch(sender_id, payload)
+            elif cls is ReadyBatchPayload:
+                es.acs.handle_ready_batch(sender_id, payload)
+            else:
+                es.acs.handle_message(sender_id, payload)
+
+    def _note_farahead(self) -> None:
+        """One sighting of traffic beyond the forward demux horizon
+        (shared by the scalar chain and the wave router, per payload
+        so the renudge cadence matches across arms).  The first
+        sighting requests catch-up immediately (dedup'd per
+        frontier); if the frontier then fails to move (our request or
+        its responses were lost), every further CATCHUP_RENUDGE_EVERY
+        sightings force a re-broadcast — a retry clocked by traffic,
+        not wall time."""
+        self._farahead_sightings += 1
+        self._request_catchup(
+            force=self._farahead_sightings % CATCHUP_RENUDGE_EVERY == 0
+        )
+
+    def _epoch_state(self, epoch: int) -> Optional[_EpochState]:
+        if not (
+            self.epoch - KEEP_BEHIND <= epoch <= self.epoch + EPOCH_HORIZON
+        ):
+            return None
+        es = self._epochs.get(epoch)
+        if es is None:
+            # every epoch-scoped structure — the ACS and its
+            # EchoBank/VoteBank, the coin, the dec-share pools —
+            # resolves n/f/keys through the EPOCH's roster version
+            view = self.roster_for(epoch)
+            if not view.local:
+                # not a member under this epoch's roster: a joiner
+                # before activation (adopts via CATCHUP), or a
+                # retiree after (parks) — no protocol state exists
+                return None
+            acs = ACS(
+                config=view.config,
+                crypto=view.crypto,
+                epoch=epoch,
+                owner=self.node_id,
+                member_ids=view.member_ids,
+                coin=view.coin,
+                coin_secret=view.keys.coin_share,
+                out=self.out,
+                hub=self.hub,
+                coin_issue_sink=self._queue_coin_issue,
+                trace=self.trace,
+                metrics=self.metrics,
+                scope=self._scope_id,
+            )
+            acs.on_output = self._on_acs_output
+            es = _EpochState(acs, view)
+            self._epochs[epoch] = es
+        return es
+
+    # -- decryption phase (docs/HONEYBADGER-EN.md:61-65) -------------------
+
+    def _on_acs_output(self, epoch: int, output: Dict[str, bytes]) -> None:
+        es = self._epochs.get(epoch)
+        if es is None or es.output is not None:
+            return
+        es.output = output
+        self.metrics.epoch_acs_output(epoch)
+        tr = self.trace
+        if tr is not None:
+            tr.instant(
+                "epoch", "acs_output", epoch=epoch, proposers=len(output),
+                **self._lane_kw,
+            )
+        if self._two_frontier:
+            # Two-frontier split: commit the CIPHERTEXT ordering now
+            # (WAL-durable, frontier advance — epoch e+1's RBC/BBA
+            # starts immediately); the whole TPKE dec-share exchange
+            # trails in the settler at the transports' idle callbacks.
+            self._maybe_order()
+            return
+        # -- coupled arm (Config.order_then_settle=False) ----------------
+        # Epoch pipelining (BASELINE config 5): this epoch has entered
+        # its decryption-share phase — overlap it with the NEXT epoch's
+        # proposal (RS encode + Merkle forest + VAL/ECHO round trips).
+        if (
+            self.auto_propose
+            and self.config.epoch_pipelining
+            and epoch == self.epoch
+            and self._queue_work()
+        ):
+            self.start_epoch(epoch + 1)
+        # share issue AFTER the pipelined next-epoch proposal: the
+        # share-issue stage must not absorb epoch e+1's encode time
+        self._issue_dec_shares(epoch, es)
+        for proposer in list(es.ciphertexts):
+            self._try_decrypt(epoch, es, proposer)
+        self._maybe_commit(epoch, es)
+
+    def _issue_dec_shares(self, epoch: int, es: _EpochState) -> None:
+        """Parse the agreed ciphertexts and broadcast this node's
+        decryption share for each — ALL of the epoch's shares in ONE
+        batched exponentiation dispatch (and one CP-nonce entropy
+        draw).  The coupled path runs this at ACS output, on the
+        commit critical path; in two-frontier mode the settler runs it
+        off the ordered frontier at an idle boundary."""
+        if es.shares_issued or es.output is None:
+            return
+        es.shares_issued = True
+        view = es.view
+        local_share = (
+            view.local and view.keys.tpke_share is not None
+        )
+        tr = self.trace
+        t_share0 = 0.0 if tr is None else tr.now()
+        issue_cts, issue_proposers = self._parse_output_cts(
+            es, local_share
+        )
+        if not local_share:
+            # no threshold share under this epoch's roster (a joiner
+            # bootstrapping, or an adopted ordering from before our
+            # membership): the plaintext arrives via peers' shares or
+            # CLOG catch-up — nothing to issue
+            return
+        dec_shares = view.tpke.dec_share_batch(
+            view.keys.tpke_share, issue_cts
+        )
+        self._broadcast_dec_shares(epoch, issue_proposers, dec_shares)
+        if tr is not None:
+            tr.complete(
+                # the settler runs this off the ordered critical path
+                # in two-frontier mode: its mass belongs to the settle
+                # track, not the open->ordered window's tpke share
+                "settle" if self._two_frontier else "tpke",
+                "dec_share_issue",
+                t_share0,
+                epoch=epoch,
+                ciphertexts=len(es.ciphertexts),
+            )
+
+    def _parse_output_cts(
+        self, es: _EpochState, local_share: bool
+    ) -> Tuple[List[Ciphertext], List[str]]:
+        """Parse the agreed ciphertexts out of ``es.output`` into
+        ``es.ciphertexts`` (junk -> the deterministic-exclusion path
+        every correct node takes identically); returns the fresh
+        (cts, proposers) still needing this node's decryption share —
+        shared by the settler's issue path and the K-deep eager
+        staging path."""
+        view = es.view
+        issue_cts: List[Ciphertext] = []
+        issue_proposers: List[str] = []
+        for proposer, ct_bytes in es.output.items():
+            if proposer in es.ciphertexts or proposer in es.decrypted:
+                continue
+            try:
+                ct = deserialize_ciphertext(
+                    ct_bytes, view.keys.tpke_pub.group
+                    if local_share
+                    else self.group
+                )
+            except ValueError:
+                # Byzantine proposer RBC'd junk: every correct node
+                # sees the same bytes, so exclusion is deterministic
+                es.decrypted[proposer] = None
+                continue
+            es.ciphertexts[proposer] = ct
+            issue_cts.append(ct)
+            issue_proposers.append(proposer)
+        return issue_cts, issue_proposers
+
+    def _broadcast_dec_shares(
+        self, epoch: int, proposers: Sequence[str], shares
+    ) -> None:
+        for proposer, share in zip(proposers, shares):
+            self.out.broadcast(
+                DecSharePayload(
+                    proposer=proposer,
+                    epoch=epoch,
+                    index=share.index,
+                    d=share.d,
+                    e=share.e,
+                    z=share.z,
+                )
+            )
+
+    def _stage_eager_dec_shares(
+        self, epoch: int, es: _EpochState
+    ) -> None:
+        """Eager dec-share piggybacking (K-deep mode only): ordering
+        lands mid-wave — often inside the hub flush, AFTER this
+        wave's settler pass already ran — so the classic path would
+        park the freshly ordered epoch's dec shares until the NEXT
+        wave's idle pass.  Instead, stage the issue work into the
+        hub's dec-share column NOW: the first taker of the wave
+        executes every staged owner's items in one batched
+        exponentiation (ops.tpke.issue_shares_batch — one dispatch
+        and one CP-nonce draw for all K epochs and, on a shared-hub
+        cluster, all nodes the wave ordered through), and
+        _drain_dec_issues broadcasts this node's shares before the
+        turn's coalescer flush, so they piggyback on the current
+        wave's outbound bundle instead of waiting a full wave."""
+        if es.shares_issued or es.output is None:
+            return
+        es.shares_issued = True
+        view = es.view
+        local_share = (
+            view.local and view.keys.tpke_share is not None
+        )
+        issue_cts, issue_proposers = self._parse_output_cts(
+            es, local_share
+        )
+        if not local_share:
+            return
+        # item construction shared with Tpke.dec_share_batch (one
+        # home for the CP context/vk binding)
+        items = view.tpke.dec_share_items(
+            view.keys.tpke_share, issue_cts
+        )
+        for proposer, item in zip(issue_proposers, items):
+            self.hub.stage_dec_issue(
+                self,
+                (epoch, proposer),
+                item,
+                view.keys.tpke_pub.group,
+            )
+            self._eager_staged = True
+        if self.trace is not None and issue_proposers:
+            self.trace.instant(
+                "settle",
+                "dec_share_stage",
+                epoch=epoch,
+                ciphertexts=len(issue_proposers),
+            )
+
+    def _drain_dec_issues(self) -> None:
+        """Collect this node's eagerly staged dec shares from the
+        hub's dec-share column (the first taker executes the WHOLE
+        staged pool — see CryptoHub.take_dec_issues) and broadcast
+        them: the piggyback send that rides the current wave's
+        coalescer flush.  One eager_share_waves tick per wave that
+        actually carried eager shares."""
+        if not self._eager_staged:
+            return
+        self._eager_staged = False
+        rows = self.hub.take_dec_issues(self)
+        if not rows:
+            return
+        for (epoch, proposer), share in rows:
+            # one shared payload-construction path with the settler's
+            # issue (per row: stage order spans epochs)
+            self._broadcast_dec_shares(epoch, (proposer,), (share,))
+        self.metrics.eager_share_waves.inc()
+
+    # -- the ordered frontier (two-frontier mode) --------------------------
+
+    def _maybe_order(self) -> None:
+        """Advance the ORDERED frontier: the moment the current
+        epoch's ACS output is agreed, durably commit the ciphertext
+        ordering (COrd record) and open the next epoch — without
+        waiting for the decryption exchange.  Parks while the settled
+        frontier trails by Config.decrypt_lag_max epochs, so a
+        coalition delaying settlement (share forgery) stalls ordering
+        AT the bound instead of letting the durable-plaintext lag grow
+        without limit."""
+        while True:
+            es = self._epochs.get(self.epoch)
+            if es is None or es.output is None or es.ordered:
+                return
+            epoch = self.epoch
+            lag = epoch - len(self.committed_batches)
+            if lag >= self.config.decrypt_lag_max:
+                if (
+                    self.trace is not None
+                    and self._park_traced != epoch
+                ):
+                    self._park_traced = epoch
+                    self.trace.instant(
+                        "epoch", "order_parked", epoch=epoch, lag=lag,
+                        **self._lane_kw,
+                    )
+                return
+            self._record_ordered(epoch, es)
+            if self._pipeline_depth > 1:
+                # K-deep eager path: the epoch's dec shares stage
+                # into the hub's dec-share column during the CURRENT
+                # message wave and piggyback on this turn's coalescer
+                # flush (_drain_dec_issues) instead of waiting for
+                # the next wave's settler pass
+                self._stage_eager_dec_shares(epoch, es)
+            if self.trace is not None:
+                self.trace.instant(
+                    "epoch",
+                    "ordered",
+                    epoch=epoch,
+                    proposers=len(es.output),
+                    **self._lane_kw,
+                )
+            self.log.debug("ordered", epoch=epoch)
+            self._advance_epoch()
+
+    def _record_ordered(
+        self,
+        epoch: int,
+        es: _EpochState,
+        body: Optional[bytes] = None,
+    ) -> None:
+        """The ordered-frontier bookkeeping shared by the local path
+        and COrd catch-up adoption: ONE body is the durable WAL
+        record, the catch-up serving store, and the fuzzer's
+        byte-identity witness — pass the adopted quorum bytes when
+        they exist, or the canonical encoding of ``es.output`` is
+        used."""
+        if body is None:
+            body = encode_ordered_body(epoch, es.output)
+        es.ordered = True
+        tr = self.trace
+        es.t_ordered = 0.0 if tr is None else tr.now()
+        if self.batch_log is not None:
+            self.batch_log.append_ordered_body(epoch, body)
+        self._ordered_bodies[epoch] = body
+        self.metrics.epoch_ordered(epoch)
+
+    def _drive_settler(self) -> None:
+        """The trailing settle track: issue pending dec shares for
+        ordered epochs, probe combines, and settle ready epochs
+        strictly in order — all OFF the ordered frontier's critical
+        path (runs at the transports' idle callbacks, and at turn exit
+        on self-draining transports).  Reentrancy-guarded: settling an
+        epoch can start the next one, whose turn exit recurses here."""
+        if not self._two_frontier or self._settler_active:
+            return
+        self._settler_active = True
+        try:
+            for epoch in range(len(self.committed_batches), self.epoch):
+                es = self._epochs.get(epoch)
+                if es is None or not es.ordered:
+                    continue
+                if not es.shares_issued:
+                    self._issue_dec_shares(epoch, es)
+                for proposer in list(es.ciphertexts):
+                    if proposer not in es.decrypted:
+                        self._try_decrypt(epoch, es, proposer)
+            self._maybe_settle()
+        finally:
+            self._settler_active = False
+
+    def _maybe_settle(self) -> None:
+        """Settle ordered epochs in order at the SETTLED frontier:
+        write the plaintext CLOG record, apply the dedup filter, fire
+        on_commit.  Each settlement may unlock the next epoch's
+        already-complete decryption — and releases backpressure on the
+        ordered frontier."""
+        while True:
+            epoch = len(self.committed_batches)
+            if epoch >= self.epoch:
+                return  # nothing ordered ahead of settlement
+            es = self._epochs.get(epoch)
+            if (
+                es is None
+                or not es.ordered
+                or es.committed
+                or es.output is None
+                or any(p not in es.decrypted for p in es.output)
+            ):
+                return
+            self._commit_batch(epoch, es)
+            self._prune_epoch_states()
+            # settling may release backpressure: resume ordering (and
+            # with it, proposing) the moment lag drops below the bound
+            # — on BOTH ordering paths, or a catch-up node parked at
+            # the bound with a full f+1 COrd tally wedges in a
+            # quiescent cluster
+            self._maybe_order()
+            self._maybe_adopt_ordered()
+
+    def _handle_dec_share(
+        self,
+        epoch: int,
+        es: _EpochState,
+        sender: str,
+        proposer: str,
+        index: int,
+        d: int,
+        e: int,
+        z: int,
+    ) -> None:
+        view = es.view
+        if not view.local:
+            return  # no threshold material: the epoch settles via CLOG
+        if (
+            sender not in view.member_set
+            or proposer not in view.member_set  # bounds es.dec_shares
+            or not (1 <= index <= view.config.n)
+        ):
+            return
+        pool = es.dec_shares.setdefault(
+            proposer, SharePool(view.keys.tpke_pub.threshold)
+        )
+        if not pool.add_lazy(sender, index, d, e, z):
+            self.metrics.dedup_absorbed.inc()
+            return
+        if self._two_frontier:
+            # shares only POOL on the message path; the settler probes
+            # combines and settles at the next idle boundary, so the
+            # decrypt work batches per wave instead of per frame
+            return
+        self._try_decrypt(epoch, es, proposer)
+        self._maybe_commit(epoch, es)
+
+    def _handle_dec_share_batch(
+        self, epoch: int, es: _EpochState, sender: str, payload
+    ) -> None:
+        """One sender's decryption shares across many proposers
+        (DecShareBatchPayload): a width-1 wave — probes once per
+        touched proposer, commit check once per frame (the shared
+        pooling loop lives in _handle_dec_share_wave, so the scalar
+        and wave arms cannot drift apart on the crossing rule)."""
+        self._handle_dec_share_wave(epoch, es, ((sender, payload),))
+
+    def _handle_dec_share_wave(
+        self, epoch: int, es: _EpochState, items
+    ) -> None:
+        """One delivery wave's decryption shares for one epoch across
+        ALL senders (the WaveRouter's dec column; DecShareBatchPayload
+        delegates here as a width-1 wave): every share pools under the
+        same per-(sender, proposer) dedup as the scalar handler; the
+        threshold probes run once per TOUCHED proposer and the commit
+        check once per WAVE — identical outcomes, since neither has
+        observable effects below its threshold.  Probes fire only on
+        the threshold CROSSING (below it nothing can combine; above it
+        the only consumers of fresh shares are a flagged pool needing
+        CP-path replacements and an index-short pool awaiting a
+        distinct Shamir index); missed-window cases re-probe via
+        _on_acs_output (output arrives after crossing) and
+        _on_dec_verdicts (burn with replacements parked)."""
+        view = es.view
+        if not view.local:
+            return  # no threshold material: the epoch settles via CLOG
+        member = view.member_set
+        pools = es.dec_shares
+        threshold = view.keys.tpke_pub.threshold
+        n = view.config.n
+        opt_failed = es.opt_failed
+        opt_short = es.opt_short
+        probe = not self._two_frontier  # two-frontier: settler probes
+        touched: List[str] = []
+        touched_set: Set[str] = set()
+        for sender, p in items:
+            if sender not in member:
+                continue
+            index = p.index
+            if not (1 <= index <= n):
+                continue
+            if p.__class__ is DecSharePayload:
+                proposers = (p.proposer,)
+                dcol, ecol, zcol = (p.d,), (p.e,), (p.z,)
+            else:
+                proposers = p.proposers
+                dcol, ecol, zcol = p.d, p.e, p.z
+            for i, proposer in enumerate(proposers):
+                if proposer not in member:
+                    continue
+                pool = pools.get(proposer)
+                if pool is None:
+                    pool = pools.setdefault(
+                        proposer, SharePool(threshold)
+                    )
+                if pool.add_lazy(
+                    sender, index, dcol[i], ecol[i], zcol[i]
+                ):
+                    if not probe or proposer in touched_set:
+                        continue
+                    n_pool = len(pool)
+                    if n_pool == threshold or (
+                        n_pool > threshold
+                        and (
+                            proposer in opt_failed
+                            or proposer in opt_short
+                        )
+                    ):
+                        touched_set.add(proposer)
+                        touched.append(proposer)
+                else:
+                    self.metrics.dedup_absorbed.inc()
+        if not touched:
+            return
+        for proposer in touched:
+            self._try_decrypt(epoch, es, proposer)
+        self._maybe_commit(epoch, es)
+
+    def _try_decrypt(
+        self, epoch: int, es: _EpochState, proposer: str
+    ) -> None:
+        """Threshold reached: optimistic combine first — the ciphertext
+        tag authenticates the combined KEM value, so in the honest case
+        NO per-share CP verification runs at all (it replaces 2(f+1)
+        dual-exponentiations per proposer).  A bad tag means a selected
+        share was invalid: flag the proposer onto the CP-verified hub
+        path, which burns the culprit and combines valid shares."""
+        if es.output is None or proposer in es.decrypted:
+            return
+        ct = es.ciphertexts.get(proposer)
+        if ct is None:
+            return
+        view = es.view
+        pool = es.dec_shares.get(proposer)
+        if pool is None or len(pool) < view.keys.tpke_pub.threshold:
+            return
+        if proposer not in es.opt_failed:
+            subset = pool.optimistic_subset()
+            if subset is None:
+                # size threshold met but too few distinct indices —
+                # keep the batched handler probing on later adds
+                es.opt_short.add(proposer)
+                return
+            es.opt_short.discard(proposer)
+            tr = self.trace
+            t0 = 0.0 if tr is None else tr.now()
+            try:
+                plain = view.tpke.combine(ct, subset)
+            except ValueError:  # bad tag: an invalid share slipped in
+                es.opt_failed.add(proposer)
+                self.hub.mark_dirty(self)
+                self.hub.request_flush()
+                return
+            if tr is not None:
+                tr.complete(
+                    "settle" if self._two_frontier else "tpke",
+                    "combine",
+                    t0,
+                    epoch=epoch,
+                    proposer=proposer,
+                )
+            try:
+                es.decrypted[proposer] = deserialize_txs(
+                    plain, self._tx_parse_memo
+                )
+            except ValueError:
+                # authentic plaintext, malformed framing: the
+                # proposer's own doing, identical at every node
+                es.decrypted[proposer] = None
+            return
+        # flagged proposer: freshly pooled shares need CP verification
+        self.hub.mark_dirty(self)
+        self.hub.request_flush()
+
+    # -- hub client protocol (protocol.hub.CryptoHub) ----------------------
+
+    def drain_pending(self, wave) -> None:
+        for epoch, es in self._epochs.items():
+            if es.output is None or es.committed or not es.view.local:
+                continue
+            view = es.view
+            for proposer, ct in es.ciphertexts.items():
+                if proposer in es.decrypted:
+                    continue
+                if proposer not in es.opt_failed:
+                    # honest path: the optimistic combine needs no CP
+                    # verification; don't burn modexps on its shares
+                    continue
+                pool = es.dec_shares.get(proposer)
+                if pool is None:
+                    continue
+                senders, shs = pool.collect_pending(pool.need_more())
+                if not senders:
+                    continue
+                wave.add_share(
+                    view.keys.tpke_pub,
+                    ct.c1,
+                    view.tpke.context(ct),
+                    senders,
+                    shs,
+                    lambda snd, ok, pool=pool: self._on_dec_verdicts(
+                        pool, snd, ok
+                    ),
+                )
+
+    def _on_dec_verdicts(self, pool, senders, ok) -> None:
+        pool.apply_verdicts(senders, ok)
+        if not all(ok) and pool.need_more():
+            # burned slot, replacements already parked: re-mark or the
+            # dirty-set flush never collects them again (same liveness
+            # hazard as BBA._on_coin_verdicts)
+            self.hub.mark_dirty(self)
+
+    def after_crypto_flush(self) -> None:
+        for epoch, es in list(self._epochs.items()):
+            if es.output is None or es.committed or not es.view.local:
+                continue
+            for proposer, ct in list(es.ciphertexts.items()):
+                if proposer in es.decrypted:
+                    continue
+                pool = es.dec_shares.get(proposer)
+                if pool is None:
+                    continue
+                valid = pool.ready()
+                if valid is None:
+                    continue
+                try:
+                    plain = es.view.tpke.combine(ct, valid)
+                    es.decrypted[proposer] = deserialize_txs(
+                        plain, self._tx_parse_memo
+                    )
+                except ValueError:
+                    # combined KEM value is independent of the share
+                    # subset, so a failed tag/framing fails identically
+                    # at every node
+                    es.decrypted[proposer] = None
+            self._maybe_commit(epoch, es)
+
+    # -- CATCHUP (crash-recovery state transfer; SURVEY.md §5.3-5.4) -------
+
+    def request_catchup(self) -> None:
+        """Ask the roster for every committed batch from our commit
+        frontier on (call after a restart; also fired automatically
+        when peer traffic shows we are more than EPOCH_HORIZON
+        behind).  Peers each answer with up to CATCHUP_MAX_EPOCHS
+        CatchupResp payloads; epochs adopt in order as each collects
+        f+1 identical bodies."""
+        try:
+            self._request_catchup(force=True)
+        finally:
+            self._exit_turn()
+
+    def _maybe_chase_stall(self) -> None:
+        """Reduced-quorum stall watchdog (see CATCHUP_STALL_BUDGET).
+
+        Runs at every transport idle callback, right before the
+        outbound flush so a fired chase ships with this wave.  A
+        "quiet" idle — no serve_wave/serve_request ingest since the
+        previous idle callback — while epochs sit started-but-unsettled
+        is the signature of the n-f totality wedge: the roster went
+        quiescent around an instance this node is one attested READY
+        short of delivering (a lossy coalition sender's frame that
+        nobody will re-send).  Chasing the settled frontier through
+        CATCHUP retrieves the committed batches instead; the budget
+        (re-armed on every settle advance) bounds the extra traffic so
+        a genuinely unservable frontier — fewer than f+1 peers hold
+        the batch — still quiesces."""
+        if not self.config.reduced_quorum:
+            return
+        rx = self._idle_rx
+        quiet = rx == self._idle_rx_seen
+        self._idle_rx_seen = rx
+        settled = len(self.committed_batches)
+        # stuck = settled behind the live frontier, OR a live-frontier
+        # epoch whose ACS/settle never finished (a node wedged inside
+        # its very first epoch has settled == self.epoch == 0 — the
+        # frontier comparison alone would read as healthy)
+        stuck = settled < self.epoch or any(
+            not es.committed for es in self._epochs.values()
+        )
+        if not stuck:
+            self._stall_nudges = 0
+            return
+        if not quiet:
+            return
+        if settled != self._stall_frontier:
+            self._stall_frontier = settled
+            self._stall_nudges = 0
+        if self._stall_nudges >= CATCHUP_STALL_BUDGET:
+            return
+        self._stall_nudges += 1
+        if self.trace is not None:
+            self.trace.instant(
+                "catchup", "stall_chase", settled=settled, live=self.epoch
+            )
+        self._request_catchup(force=True)
+
+    def _request_catchup(self, force: bool = False) -> None:
+        # the SETTLED frontier is what we are missing durably; peers
+        # answer with CLOG bodies from there plus (two-frontier mode)
+        # COrd bodies up to their ordered frontier.  On the coupled
+        # path settled == self.epoch, the historical behavior.
+        frontier = len(self.committed_batches)
+        if not force and self._last_catchup_request == frontier:
+            return  # one broadcast per frontier (re-fired as we adopt)
+        self._last_catchup_request = frontier
+        if self.trace is not None:
+            self.trace.instant("catchup", "request", from_epoch=frontier)
+        self.out.broadcast(CatchupReqPayload(from_epoch=frontier))
+
+    def _handle_catchup_req(
+        self, sender: str, p: CatchupReqPayload
+    ) -> None:
+        # membership over time: any known roster version's member —
+        # a bootstrapping joiner or a not-yet-torn-down retiree is a
+        # legitimate catch-up correspondent during the transition
+        if not self._reconfig.known_member(sender):
+            return
+        start = p.from_epoch
+        # remembered even when unservable: if the link to the sender
+        # heals later, peer_reconnected re-serves from here
+        self._catchup_last_req[sender] = start
+        end = min(len(self.committed_batches), start + CATCHUP_MAX_EPOCHS)
+        # two-frontier mode: epochs we ORDERED but have not settled yet
+        # have no plaintext to serve, but their agreed ciphertext
+        # ordering (COrd body) still lets the requester advance its
+        # ordered frontier and rejoin the live epochs
+        ord_start = max(start, len(self.committed_batches))
+        ord_end = (
+            min(self.epoch, start + CATCHUP_MAX_EPOCHS)
+            if self._two_frontier
+            else 0
+        )
+        serve_ord = [
+            e
+            for e in range(ord_start, ord_end)
+            if e in self._ordered_bodies
+        ]
+        if not (0 <= start < end) and not serve_ord:
+            if 0 <= start and start >= len(self.committed_batches):
+                # asked at (or past) our own frontier: park it and
+                # re-serve when settlement advances past the ask
+                self._catchup_parked[sender] = start
+            return  # nothing committed there (yet) that we can serve
+        self._catchup_parked.pop(sender, None)
+        end = max(end, start)  # plaintext range may be empty
+        # amplification guard: a legitimately catching-up node's
+        # from_epoch strictly advances past each window we served it;
+        # a request that does NOT advance (replayed frame, Byzantine
+        # request loop, or an honest retry after lost responses) draws
+        # from a small repeat budget re-armed on every local epoch
+        # advance and on link heal — counted, not clocked, so seeded
+        # deterministic runs replay exactly, yet an 8-byte request no
+        # longer buys unlimited 32-batch responses
+        if start < self._catchup_floor.get(sender, 0):
+            budget = self._catchup_repeats.get(
+                sender, CATCHUP_REPEAT_BUDGET
+            )
+            if budget <= 0:
+                return
+            self._catchup_repeats[sender] = budget - 1
+        self._catchup_floor[sender] = max(
+            self._catchup_floor.get(sender, 0), end, ord_end
+        )
+        if self.trace is not None:
+            self.trace.instant(
+                "catchup",
+                "serve",
+                from_epoch=start,
+                epochs=max(0, end - start),
+                ordered=len(serve_ord),
+            )
+        # one response per missed epoch; the coalescing broadcaster
+        # bundles the run into a single envelope for the requester
+        self._send_clog_range(sender, start, end)
+        for epoch in serve_ord:
+            self.out.send_to(
+                sender,
+                CatchupOrdPayload(
+                    epoch=epoch, body=self._ordered_bodies[epoch]
+                ),
+            )
+        if serve_ord:
+            # part of the window went out as ciphertext orderings
+            # only: owe the requester those epochs' plaintext, pushed
+            # from _serve_owed_plaintext as settlement reaches them
+            self._catchup_plain_owed[sender] = (
+                end,
+                serve_ord[-1] + 1,
+            )
+
+    def _serve_owed_plaintext(self) -> None:
+        """Settlement made new plaintext servable: push the CLOG
+        bodies owed to requesters whose last window we could only
+        answer with COrd bodies.  By the time we settle, such a
+        requester's repeat budget is typically spent and budgets
+        re-arm only on ORDERING advances — without this push a
+        quiescent cluster wedges with the requester parked at the
+        decrypt-lag bound.  Bounded by the limit fixed at serve time:
+        each request buys at most its own window, once as COrd and
+        once as CLOG."""
+        if self._catchup_parked:
+            settled = len(self.committed_batches)
+            for sender, start in sorted(self._catchup_parked.items()):
+                if start < settled:
+                    # re-enter the normal serve path (it pops the
+                    # park on success and applies every guard)
+                    self._handle_catchup_req(
+                        sender, CatchupReqPayload(from_epoch=start)
+                    )
+        if not self._catchup_plain_owed:
+            return
+        settled = len(self.committed_batches)
+        for sender, (nxt, limit) in list(
+            self._catchup_plain_owed.items()
+        ):
+            end = min(settled, limit)
+            if nxt >= end:
+                if nxt >= limit:
+                    del self._catchup_plain_owed[sender]
+                continue
+            if self.trace is not None:
+                self.trace.instant(
+                    "catchup",
+                    "serve_settled",
+                    from_epoch=nxt,
+                    epochs=end - nxt,
+                )
+            self._send_clog_range(sender, nxt, end)
+            if end >= limit:
+                del self._catchup_plain_owed[sender]
+            else:
+                self._catchup_plain_owed[sender] = (end, limit)
+
+    def _send_clog_range(
+        self, sender: str, start: int, end: int
+    ) -> None:
+        """One CatchupResp per committed epoch in [start, end) — the
+        serve loop shared by direct catch-up answers and the
+        owed-plaintext push."""
+        for epoch in range(start, end):
+            self.out.send_to(
+                sender,
+                CatchupRespPayload(
+                    epoch=epoch,
+                    body=encode_batch_body(
+                        epoch, self.committed_batches[epoch]
+                    ),
+                ),
+            )
+
+    def peer_reconnected(self, member_id: str) -> None:
+        """Transport event: our link to ``member_id`` was just
+        (re-)established.  Responses served while the link was down
+        went into the void, and the requester's per-frontier dedup
+        means it will not ask again on its own — so re-arm the
+        sender's serving budget and re-serve its last requested
+        window.  This is what completes an interrupted state transfer
+        once the self-healing dial layer heals the path (the gRPC
+        crash/rejoin flow); event-driven, so deterministic transports
+        stay deterministic."""
+        try:
+            if not self._reconfig.known_member(member_id):
+                return
+            self._catchup_repeats.pop(member_id, None)
+            last = self._catchup_last_req.get(member_id)
+            servable = len(self.committed_batches)
+            if self._two_frontier:
+                servable = max(servable, self.epoch)  # COrd bodies too
+            if last is not None and last < servable:
+                self._catchup_floor.pop(member_id, None)
+                self._handle_catchup_req(
+                    member_id, CatchupReqPayload(from_epoch=last)
+                )
+        finally:
+            self._exit_turn()
+
+    def _tally_winner(self, tally, expected_epoch, decode):
+        """The shared f+1 quorum rule of BOTH catch-up planes
+        (plaintext CLOG and ordered COrd bodies): pick the most-voted
+        body; below f+1 votes nothing adopts.  An f+1 quorum always
+        contains an honest sender, so a winning body that fails
+        ``decode`` / claims the wrong epoch is pure-Byzantine — shed
+        its votes and re-tally.  Returns (decoded_value, body) or
+        None; sheds mutate ``tally`` in place."""
+        while tally:
+            counts: Dict[bytes, int] = {}
+            for body in tally.values():
+                counts[body] = counts.get(body, 0) + 1
+            body, votes = max(counts.items(), key=lambda kv: kv[1])
+            # the quorum width follows the EPOCH's roster (an adopted
+            # epoch past an activation boundary counts under f')
+            if votes < self.roster_for(expected_epoch).config.f + 1:
+                return None
+            try:
+                epoch, decoded = decode(body)
+            except (ValueError, struct.error, UnicodeDecodeError):
+                epoch = decoded = None
+            if epoch != expected_epoch:
+                for snd in [s for s, b in tally.items() if b == body]:
+                    del tally[snd]
+                continue
+            return decoded, body
+        return None
+
+    def _handle_catchup_resp(
+        self, sender: str, p: CatchupRespPayload
+    ) -> None:
+        if not self._reconfig.known_member(sender):
+            return
+        # plaintext adoption happens at the SETTLED frontier (== the
+        # live frontier on the coupled path); in two-frontier mode an
+        # ordered-ahead node accepts CLOG bodies for epochs it ordered
+        # but could not settle (e.g. a restart lost its peers' shares)
+        frontier = len(self.committed_batches)
+        if not (frontier <= p.epoch < frontier + CATCHUP_WINDOW):
+            return  # stale, or absurdly far ahead: bound tally memory
+        # one vote per (epoch, sender); a re-send overwrites, never adds
+        self._catchup_tallies.setdefault(p.epoch, {})[sender] = p.body
+        adopted = False
+        # adopt in epoch order at the frontier; each adoption may
+        # unlock the NEXT epoch's already-collected quorum
+        while True:
+            frontier = len(self.committed_batches)
+            tally = self._catchup_tallies.get(frontier)
+            if not tally:
+                break
+            won = self._tally_winner(tally, frontier, decode_batch_body)
+            if won is None:
+                break
+            batch, _body = won
+            self._adopt_catchup_batch(frontier, batch)
+            adopted = True
+        if adopted:
+            # the frontier moved: peers may hold more epochs than one
+            # serving window.  Non-forced => the per-frontier dedup
+            # broadcasts exactly once per new frontier value, even if
+            # a sub-quorum (or Byzantine) tally already sits there —
+            # that tally alone must never suppress the chase, or a
+            # single dropped/forged response wedges the catch-up in a
+            # quiescent cluster.
+            self._request_catchup()
+
+    def _adopt_catchup_batch(self, epoch: int, batch: Batch) -> None:
+        """Commit a batch learned via CATCHUP instead of running the
+        (long-gone) epoch ourselves."""
+        self.log.info("adopted catch-up batch", epoch=epoch, txs=len(batch))
+        if self.trace is not None:
+            self.trace.instant(
+                "catchup", "adopt", epoch=epoch, txs=len(batch)
+            )
+        self.committed_batches.append(batch)
+        seen = set(batch.tx_list())
+        self._remember_committed(seen)
+        self.metrics.epoch_committed(epoch, len(batch))
+        if self.batch_log is not None:
+            self.batch_log.append(epoch, batch)
+            self._maybe_log_checkpoint(epoch)
+        self._epochs.pop(epoch, None)  # any partial local state is moot
+        self.hub.drop_scope((self.node_id, epoch))
+        self._catchup_tallies.pop(epoch, None)
+        # adopted batches feed the reconfig plane exactly like local
+        # settlements: a crashed/partitioned node learns a ceremony
+        # happened from the log it catches up on
+        self._reconfig.on_batch_settled(epoch, batch)
+        self._maybe_teardown_retired()
+        self._serve_owed_plaintext()
+        self._notify_commit(epoch, batch)
+        if self._two_frontier and epoch < self.epoch:
+            # plaintext for an epoch we had already ORDERED (restart
+            # with an ordered-ahead window, or a settle stall peers
+            # resolved first): the settled frontier advanced; the live
+            # frontier is already past.  The next ordered epoch may be
+            # ready, and settling may release ordering backpressure.
+            self._catchup_ord_tallies.pop(epoch, None)
+            self._maybe_settle()
+            self._maybe_order()
+            self._maybe_adopt_ordered()
+            return
+        self._advance_epoch()
+        if self._two_frontier:
+            self._maybe_order()  # a buffered ACS output may be next
+
+    # -- ordered-frontier CATCHUP (two-frontier mode) ----------------------
+
+    def _handle_catchup_ord(
+        self, sender: str, p: CatchupOrdPayload
+    ) -> None:
+        if not self._two_frontier or not self._reconfig.known_member(
+            sender
+        ):
+            return
+        if not (self.epoch <= p.epoch < self.epoch + CATCHUP_WINDOW):
+            return  # stale, or absurdly far ahead: bound tally memory
+        self._catchup_ord_tallies.setdefault(p.epoch, {})[sender] = p.body
+        self._maybe_adopt_ordered()
+
+    def _maybe_adopt_ordered(self) -> None:
+        """Adopt ciphertext orderings learned via COrd catch-up, in
+        order at the ORDERED frontier, each on f+1 byte-identical
+        bodies (>= 1 honest sender => the agreed ACS output) — the
+        exact adoption rule of the plaintext path, one frontier up.
+        Backpressure applies the same way: adopted ordered-ahead
+        epochs are bounded by Config.decrypt_lag_max."""
+        adopted = False
+        while True:
+            if (
+                self.epoch - len(self.committed_batches)
+                >= self.config.decrypt_lag_max
+            ):
+                break  # the settler must drain before we order ahead
+            tally = self._catchup_ord_tallies.get(self.epoch)
+            if not tally:
+                break
+            won = self._tally_winner(
+                tally, self.epoch, decode_ordered_body
+            )
+            if won is None:
+                break
+            output, body = won
+            self._adopt_ordered(self.epoch, output, body)
+            adopted = True
+        if adopted:
+            # chase the rest (plaintext AND ordered) from the peers.
+            # Forced: COrd adoption advances the ORDERED frontier only,
+            # and the non-forced dedup keys on the settled frontier —
+            # without force this chase would be a no-op until
+            # settlement moves (peers' counted repeat budgets still
+            # bound a stuck requester)
+            self._request_catchup(force=True)
+
+    def _adopt_ordered(
+        self, epoch: int, output: Dict[str, bytes], body: bytes
+    ) -> None:
+        """One ordering adopted: durable COrd record, bookkeeping,
+        frontier advance.  The settler decrypts it like any locally
+        ordered epoch — our own dec share re-issues at the next idle
+        boundary; the plaintext typically completes via the share
+        exchange or CLOG catch-up once peers settle."""
+        self.log.info("adopted catch-up ordering", epoch=epoch)
+        if self.trace is not None:
+            self.trace.instant("catchup", "adopt_ordered", epoch=epoch)
+        es = self._epochs.get(epoch)
+        if es is None:
+            es = _EpochState(None, self.roster_for(epoch))
+            es.proposed = True
+            self._epochs[epoch] = es
+        if es.output is None:
+            es.output = output
+        self._record_ordered(epoch, es, body)
+        self._catchup_ord_tallies.pop(epoch, None)
+        self._advance_epoch()
+
+    def _maybe_log_checkpoint(self, epoch: int) -> None:
+        """Every Config.ledger_checkpoint_every commits, snapshot the
+        dedup window into the WAL (call AFTER _remember_committed so
+        the checkpoint covers ``epoch`` itself)."""
+        every = self.config.ledger_checkpoint_every
+        if every <= 0:
+            return
+        self._commits_since_ckpt += 1
+        if self._commits_since_ckpt >= every:
+            self._commits_since_ckpt = 0
+            self.batch_log.append_checkpoint(
+                epoch, self._committed_history
+            )
+
+    # -- commit (the consensused batch of honeybadger.go:20-21) ------------
+
+    def _maybe_commit(self, epoch: int, es: _EpochState) -> None:
+        if self._two_frontier:
+            # decryption progress feeds the SETTLED frontier; the
+            # ordered frontier advanced at ACS output
+            self._maybe_settle()
+            return
+        if es.committed or es.output is None or epoch != self.epoch:
+            return
+        if any(p not in es.decrypted for p in es.output):
+            return
+        self._commit_batch(epoch, es)
+        self._advance_epoch()
+
+    def _commit_batch(self, epoch: int, es: _EpochState) -> None:
+        """Deliver one fully-decrypted epoch: build the deduped batch,
+        append the plaintext CLOG record, fold the dedup filter, fire
+        on_commit.  The coupled path runs this at the (single) commit
+        frontier; two-frontier mode runs it at the settled frontier,
+        strictly in epoch order."""
+        es.committed = True
+        seen: Set[bytes] = set()
+        contributions: Dict[str, List[bytes]] = {}
+        for proposer in sorted(es.output):
+            txs = es.decrypted[proposer]
+            if not txs:
+                continue
+            mine: List[bytes] = []
+            for tx in txs:
+                if tx not in seen:  # first contribution wins (dedupe)
+                    seen.add(tx)
+                    mine.append(tx)
+            if mine:
+                contributions[proposer] = mine
+        batch = Batch(contributions=contributions)
+        self.committed_batches.append(batch)
+        self.metrics.epoch_committed(epoch, len(batch))
+        if self.trace is not None:
+            self.trace.instant(
+                "epoch", "commit", epoch=epoch, txs=len(batch),
+                **self._lane_kw,
+            )
+            if es.t_ordered:
+                # the settle track made visible: one span from the
+                # ciphertext-ordered commit to plaintext settlement —
+                # the tpke mass that LEFT the open->ordered window
+                self.trace.complete(
+                    "settle", "decrypt_lag", es.t_ordered, epoch=epoch,
+                    **self._lane_kw,
+                )
+        if self.batch_log is not None:
+            self.batch_log.append(epoch, batch)
+        self.log.debug("committed", epoch=epoch, txs=len(batch))
+        # re-queue our own txs that did not make it into the set
+        if es.proposed:
+            for tx in es.my_txs:
+                if tx not in seen:
+                    self.que.push(tx)
+        # remember what committed so duplicate local submissions are
+        # dropped lazily at poll time (bounded memory)
+        self._remember_committed(seen)
+        if self.batch_log is not None:
+            self._maybe_log_checkpoint(epoch)
+        # the reconfig plane reads every settled batch (RECONFIG +
+        # dealing transactions drive discovery / qualified-set /
+        # finalize), and settlement crossing an activation boundary
+        # releases the retirees
+        self._reconfig.on_batch_settled(epoch, batch)
+        self._maybe_teardown_retired()
+        self._notify_commit(epoch, batch)
+        self._serve_owed_plaintext()
+
+    def _prune_epoch_states(self) -> None:
+        """Drop epoch state that is BOTH outside the demux window
+        (late frames for it are rejected by ``_epoch_state``, so the
+        state can never be touched again) and — in two-frontier mode
+        — settled (an ordered-but-unsettled epoch must stay live
+        however far the ordered frontier runs; its share exchange and
+        settlement are still pending).  Driven from ordering advances
+        AND from settlement: a quiescing two-frontier node settles
+        its last ``decrypt_lag_max`` epochs with no further ordering,
+        and must not retain their ACS/share state indefinitely."""
+        settled = len(self.committed_batches)
+        for stale in [
+            e
+            for e in self._epochs
+            if e < self.epoch - KEEP_BEHIND
+            and (not self._two_frontier or e < settled)
+        ]:
+            del self._epochs[stale]
+            self.hub.drop_scope((self._scope_id, stale))
+
+    def _advance_epoch(self) -> None:
+        """Advance the live-protocol frontier ``self.epoch``: at every
+        commit on the coupled path, at every ORDERING in two-frontier
+        mode (where commit = settle trails behind)."""
+        self.epoch += 1
+        # crossing a roster activation boundary swaps the ACTIVE view
+        # (keys, batch policy) before anything proposes into the new
+        # epoch
+        self._maybe_activate_roster()
+        settled = len(self.committed_batches)
+        for stale in [  # tallies below the frontier can never adopt
+            e for e in self._catchup_tallies if e < settled
+        ]:
+            del self._catchup_tallies[stale]
+        for stale in [
+            e for e in self._catchup_ord_tallies if e < self.epoch
+        ]:
+            del self._catchup_ord_tallies[stale]
+        for stale in [
+            # COrd catch-up only ever serves from the settled frontier
+            # up; bodies further behind are diagnostic witnesses (the
+            # fuzzer's cross-node byte-identity check), kept for one
+            # serving window, never forever
+            e
+            for e in self._ordered_bodies
+            if e < settled - CATCHUP_MAX_EPOCHS
+        ]:
+            del self._ordered_bodies[stale]
+        # progress re-arms the catch-up serving budgets and the
+        # far-ahead retry clock (both counted per frontier value)
+        self._catchup_repeats.clear()
+        self._farahead_sightings = 0
+        self._prune_epoch_states()
+        # propose into the new epoch if we have work, if peers already
+        # started it (its state exists from buffered traffic), or if
+        # an installed roster switch still lies ahead — the boundary
+        # only activates when the frontier REACHES it, so the old
+        # roster drives (possibly empty) epochs up to the switch
+        # instead of letting a quiescent cluster wedge mid-transition
+        if self.auto_propose and (
+            self._queue_work()
+            or self.epoch in self._epochs
+            or self.epoch < self.rosters.latest().activation_epoch
+        ):
+            self.start_epoch()
+        if self._two_frontier:
+            # the _maybe_order loop picks up the next epoch's buffered
+            # ACS output; settlement is the settler's business
+            return
+        # the new current epoch may have fully resolved while we were
+        # still committing the previous one
+        es = self._epochs.get(self.epoch)
+        if es is not None and es.output is not None:
+            self._maybe_commit(self.epoch, es)
+
+
+__all__ = [
+    "HoneyBadger",
+    "NodeKeys",
+    "setup_keys",
+    "serialize_txs",
+    "deserialize_txs",
+    "serialize_ciphertext",
+    "deserialize_ciphertext",
+    "KEEP_BEHIND",
+    "EPOCH_HORIZON",
+    "CATCHUP_MAX_EPOCHS",
+    "CATCHUP_WINDOW",
+]

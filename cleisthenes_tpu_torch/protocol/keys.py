@@ -4,9 +4,11 @@ The helpers the lockstep executor takes from the reference's
 ``cleisthenes_tpu/protocol/honeybadger.py:137-310`` (tx-list and
 ciphertext serialization, ``NodeKeys``, ``setup_keys``) and the
 pairwise MAC key schedule of ``transport/base.py:363-382``
-(``HmacAuthenticator.pair_key`` / ``key_map``), split out so the port's
-epoch does not pull in the message-passing protocol plane.  Byte
-formats and key derivations are identical to the reference's.
+(``HmacAuthenticator.pair_key`` / ``key_map``), split out so the
+lockstep epoch does not pull in the message-passing protocol plane;
+``protocol/honeybadger.py`` re-exports them where the reference
+defines them.  Byte formats and key derivations are identical to the
+reference's.
 """
 
 from __future__ import annotations
@@ -36,7 +38,23 @@ def serialize_txs(txs: Sequence[bytes]) -> bytes:
     return b"".join(out)
 
 
-def deserialize_txs(data: bytes) -> List[bytes]:
+def deserialize_txs(data: bytes, memo=None) -> List[bytes]:
+    """Parse a tx list.  ``memo`` (``honeybadger.make_tx_parse_memo``)
+    caches parses by content digest, for in-proc clusters whose nodes
+    all parse the same plaintexts; None parses every time."""
+    if memo is not None and len(data) >= 256:
+        # small blobs: the digest costs about as much as the parse
+        key = hashlib.sha256(data).digest()
+        hit = memo.map.get(key)
+        if hit is not None:
+            return list(hit)
+        out = _deserialize_txs_uncached(data)
+        memo.put(key, tuple(out))
+        return out
+    return _deserialize_txs_uncached(data)
+
+
+def _deserialize_txs_uncached(data: bytes) -> List[bytes]:
     if len(data) < 4:
         raise ValueError("truncated tx list")
     (count,) = struct.unpack_from(">I", data, 0)

@@ -1,0 +1,21 @@
+"""Cross-cutting utilities: metrics, tracing, deterministic helpers."""
+
+from cleisthenes_tpu_torch.utils.determinism import guarded_by, proposal_rng
+from cleisthenes_tpu_torch.utils.metrics import (
+    Counter,
+    EpochTrace,
+    Histogram,
+    Metrics,
+)
+from cleisthenes_tpu_torch.utils.trace import TraceRecorder, maybe_recorder
+
+__all__ = [
+    "Counter",
+    "Histogram",
+    "EpochTrace",
+    "Metrics",
+    "TraceRecorder",
+    "guarded_by",
+    "maybe_recorder",
+    "proposal_rng",
+]

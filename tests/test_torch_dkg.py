@@ -4,10 +4,9 @@ reference's.
 tests/test_dkg.py's cases run on the port's two engine arms: ``'cpu'``
 (the native host Montgomery kernel) and ``'cuda'`` on a CPU device, where
 every ``pow_batch`` runs the modexp kernels' plain PyTorch versions (K7's
-for the 256-bit group, K12's wide pow for GROUP384).  Left out:
-``test_cluster_runs_on_dkg_keys``, which needs the asynchronous protocol
-plane (``SimulatedCluster``, ``setup_keys``, ``NodeKeys``) that the port
-does not have yet.
+for the 256-bit group, K12's wide pow for GROUP384), and
+``test_cluster_runs_on_dkg_keys`` runs a ``SimulatedCluster`` epoch on
+keys from the port's ``run_dkg``.
 
 The parity cases run the reference's ``run_dkg`` and the port's at the
 same seed, with no fault knob and with each knob, and compare the public
@@ -316,3 +315,47 @@ def test_defaults_need_a_gpu():
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_cluster_runs_on_dkg_keys():
+    """Full HBBFT epoch over the in-proc transport with every
+    threshold key DKG-generated (no dealer anywhere): setup_keys'
+    output shape rebuilt from run_dkg results."""
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
+    from cleisthenes_tpu_torch.protocol.honeybadger import NodeKeys, setup_keys
+
+    n = 4
+    cfg = Config(n=n, batch_size=16, crypto_backend="cpu")
+    tpke_pub, tpke_shares, _ = dkg.run_dkg(
+        n=n, threshold=cfg.decryption_threshold, seed=21, backend="cpu"
+    )
+    coin_pub, coin_shares, _ = dkg.run_dkg(
+        n=n, threshold=cfg.f + 1, seed=22, backend="cpu"
+    )
+    cluster = SimulatedCluster(
+        n=n, batch_size=16, seed=3, key_seed=33, crypto_backend="cpu"
+    )
+    ids = cluster.ids
+    dealer = setup_keys(cfg, ids, seed=33)  # only for the MAC keys
+    # swap the dealer keys for the DKG keys before any traffic
+    for i, nid in enumerate(ids):
+        hb = cluster.nodes[nid]
+        hb.keys = NodeKeys(
+            tpke_pub=tpke_pub,
+            tpke_share=tpke_shares[i],
+            coin_pub=coin_pub,
+            coin_share=coin_shares[i],
+            mac_keys=dealer[nid].mac_keys,
+        )
+        hb.tpke = hb.crypto.tpke(tpke_pub)
+        hb.coin = hb.crypto.coin(coin_pub)
+    for i in range(32):
+        cluster.submit(b"dkg-tx-%02d" % i)
+    cluster.run_epochs()
+    hist = {
+        tuple(tuple(sorted(b.tx_list())) for b in cluster.committed(nid))
+        for nid in ids
+    }
+    assert len(hist) == 1
+    assert sum(len(b) for b in cluster.committed()) == 32

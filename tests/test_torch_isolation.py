@@ -4,10 +4,11 @@ fallback.
 Importing every module of ``cleisthenes_tpu_torch`` (and chip_smoke.py,
 wide_sweep.py) in a fresh interpreter, then running the host-side paths
 whose imports are deferred to the call — the DKG, the ``'cpp'`` codec
-over the native GF(2^8) library, the scalar share ops — must leave
-``jax`` and ``cleisthenes_tpu`` out of ``sys.modules``; and on a machine
-without a GPU the defaults, which put the work on the card, must raise
-rather than run on the CPU."""
+over the native GF(2^8) library, the scalar share ops, one epoch of an
+N=4 ``SimulatedCluster`` on ``device='cpu'`` — must leave ``jax`` and
+``cleisthenes_tpu`` out of ``sys.modules``; and on a machine without a
+GPU the defaults, which put the work on the card, must raise rather than
+run on the CPU."""
 
 import os
 import subprocess
@@ -19,6 +20,7 @@ import torch
 from cleisthenes_tpu_torch.config import Config
 from cleisthenes_tpu_torch.ops.merkle import CudaMerkle
 from cleisthenes_tpu_torch.ops.rs_cuda import CudaErasureCoder
+from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
 from cleisthenes_tpu_torch.protocol.spmd import LockstepCluster
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,6 +44,25 @@ crypto.erasure.encode_batch(np.zeros((2, 2, 8), dtype=np.uint8))
 pub, shares, _ = dkg.run_dkg(n=4, threshold=2, seed=1, backend="cpu")
 sh = coin.CommonCoin(pub, backend="cpu").share(shares[0], b"c")
 assert tpke.verify_shares(pub, coin.coin_base(b"c"), [sh], b"coin|c", backend="cpu") == [True]
+# the asynchronous plane's modules, and one N=4 epoch on the card's path
+# (the kernels' plain versions)
+plane = {
+    "utils." + m for m in ("lockcheck", "determinism", "memo", "log", "metrics", "trace", "watchdog")
+} | {"core." + m for m in ("queue", "request", "member", "ledger")} | {
+    "transport." + m for m in ("message", "base", "wan", "channel", "broadcast")
+} | {
+    "protocol." + m for m in ("echobank", "votebank", "hub", "rbc", "bba", "acs", "reconfig",
+                              "honeybadger", "router", "attest", "cluster")
+}
+assert len(plane) == 27 and {"cleisthenes_tpu_torch." + m for m in plane} <= set(names)
+from cleisthenes_tpu_torch.protocol import SimulatedCluster
+cluster = SimulatedCluster(n=4, batch_size=8, device="cpu", key_seed=2)
+for i in range(8):
+    cluster.submit(b"iso-%d" % i)
+for hb in cluster.nodes.values():
+    hb.start_epoch()
+cluster.net.run()
+assert cluster.assert_agreement() >= 1 and cluster.pending() == 0
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -59,7 +80,7 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20, out.stdout
+    assert int(count) >= 47, out.stdout
     assert bad == "[]", out.stdout
 
 
@@ -73,6 +94,15 @@ def test_default_cluster_raises_without_a_gpu():
         CudaErasureCoder(7, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CudaMerkle()
+
+
+def test_default_simulated_cluster_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SimulatedCluster()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SimulatedCluster(config=Config(n=4))
 
 
 @pytest.mark.parametrize(

@@ -3,12 +3,11 @@
 re-pointed at the port, the codec also held to the reference's
 ``CppErasureCoder`` byte for byte.
 
-``test_hbbft_epoch_on_cpp_backend`` needs the asynchronous protocol plane
-(``HoneyBadger`` over the channel transport), which the port does not
-have yet; in its place ``test_lockstep_epoch_on_cpp_backend`` runs the
-port's ``LockstepCluster`` at N=4 on ``crypto_backend='cpp'`` against
-the reference's on ``'cpp'`` and compares the committed batches byte for
-byte."""
+``test_hbbft_epoch_on_cpp_backend`` runs N=4 ``HoneyBadger`` nodes over
+the channel transport on ``crypto_backend='cpp'``;
+``test_lockstep_epoch_on_cpp_backend`` runs the port's
+``LockstepCluster`` at N=4 on ``'cpp'`` against the reference's and
+compares the committed batches byte for byte."""
 
 import hashlib
 
@@ -104,6 +103,42 @@ def test_lockstep_epoch_on_cpp_backend():
     assert runs[0] == runs[1]
     committed = [tx for c in runs[1][0] for v in c.values() for tx in v]
     assert len(committed) == 8
+
+
+def test_hbbft_epoch_on_cpp_backend():
+    from tests.test_torch_honeybadger import (
+        assert_identical_batches,
+        push_txs,
+    )
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.protocol.honeybadger import (
+        HoneyBadger,
+        setup_keys,
+    )
+    from cleisthenes_tpu_torch.transport.base import HmacAuthenticator
+    from cleisthenes_tpu_torch.transport.broadcast import ChannelBroadcaster
+    from cleisthenes_tpu_torch.transport.channel import ChannelNetwork
+
+    cfg = Config(n=4, batch_size=8, crypto_backend="cpp")
+    ids = [f"node{i}" for i in range(4)]
+    keys = setup_keys(cfg, ids, seed=11)
+    net = ChannelNetwork()
+    nodes = {}
+    for node_id in ids:
+        hb = HoneyBadger(
+            config=cfg,
+            node_id=node_id,
+            member_ids=ids,
+            keys=keys[node_id],
+            out=ChannelBroadcaster(net, node_id, ids),
+        )
+        nodes[node_id] = hb
+        net.join(node_id, hb, HmacAuthenticator(node_id, keys[node_id].mac_keys))
+    push_txs(nodes, 8)
+    for hb in nodes.values():
+        hb.start_epoch()
+    net.run()
+    assert_identical_batches(nodes)
 
 
 class TestSha256Rows:

@@ -16,10 +16,7 @@ its seed, so the two packages' keys and shares are the same integers).
 
 Left out: ``TestModEngine::test_limb_roundtrip`` (it asserts the TPU's
 22x12-bit limb layout; the port's byte codec has
-``test_byte_codec_roundtrip``) and
-``TestGroupMembership::test_deserialize_rejects_poisoned_c1`` (it needs
-``protocol/honeybadger.py``'s ciphertext codec, which the port does not
-have yet)."""
+``test_byte_codec_roundtrip``)."""
 
 import random
 
@@ -473,6 +470,29 @@ class TestGroupMembership:
         assert tpke.is_group_element(pub.master)
         ct = tpke.Tpke(pub, **CUDA).encrypt(b"m")
         assert tpke.is_group_element(ct.c1)
+
+    def test_deserialize_rejects_poisoned_c1(self):
+        import struct
+
+        from cleisthenes_tpu_torch.protocol.honeybadger import (
+            deserialize_ciphertext,
+            serialize_ciphertext,
+        )
+
+        c2 = b"\x00" * 8
+        for bad_c1 in (0, 1, mm.P - 1):
+            blob = (
+                bad_c1.to_bytes(32, "big")
+                + struct.pack(">I", len(c2))
+                + c2
+                + b"\x11" * 32
+            )
+            with pytest.raises(ValueError):
+                deserialize_ciphertext(blob)
+        # round-trip of an honest ciphertext still works
+        pub, _ = tpke.deal(4, 2, seed=5)
+        ct = tpke.Tpke(pub, backend="cpu").encrypt(b"honest")
+        assert deserialize_ciphertext(serialize_ciphertext(ct)) == ct
 
 
 class TestBatchedChallenge:
