@@ -99,21 +99,39 @@ before printing any result.  It prints, in order:
    'cuda' backend), N HoneyBadger state machines over the in-process
    channel transport with one shared ``CryptoHub`` (BASELINE.json
    configs[2], in ``bench.py``'s ``measure_protocol`` arrangement): one
-   warm-up and 2 measured epochs, each 10,000 random 64-byte
+   warm-up and 1 measured epoch, each 10,000 random 64-byte
    transactions kicked by ``start_epoch`` on every node (a kick settles
    two consensus epochs: 156 transactions a node, then the remainder),
    which must commit on every node alike, each exactly once, on the
    card's modexp engines, launching K1 and K5 (each node's propose), K6
    and K3 (the hub's waves), K8 and K9 and nothing of ``OFF_PATH``; a
    twin on the 'cpu' backend commits byte-identical batches for the
-   warm-up and the first measured epoch.  It prints each epoch's wall
+   warm-up and the measured epoch.  It prints each epoch's wall
    seconds, node 0's two frontiers, tx/s, the hub's stats and wave
    widths by kind, launches by kernel per epoch, and the hub's flush
    seconds split into the modexp engines' device leg, their packing and
    host Python; then holds the six kernels to their plain versions and
    times them at the path's shapes (K1 and K5 at the B=1 propose call,
    the others at their median wave) with their bounds;
-6. after that, the DKG path (ops/dkg.py) and the share
+6. then the same deployment at its full fault budget
+   (``byzantine_phase``): the first f=21 nodes lie (``BYZ_KINDS`` in
+   turn: four each of ShareForger, BadDealer and Equivocator, three each
+   of SplitVoter, SelectiveMute and EpochSprayer) under a wire adversary
+   of the same nodes (drop 10 %, tamper 5 %, reorder 20 %), and 10,000
+   random transactions go round-robin to the 43 honest nodes, ordered
+   by one ``run_until_drained`` with the launch counts set to 0 just
+   before.  The honest nodes must agree to depth 2 and commit every
+   transaction exactly once, every behaviour must have lied, the six
+   entry points must launch and nothing of ``OFF_PATH``; the branch
+   wave's K6 verdicts and the pooled CP checks on K8 must include false
+   ones, every K6 call, the median K8 call and every K8 call inside a
+   check with a false verdict must give on their plain versions what
+   they gave in the run, and a 'cpu' twin built from the same seeds must
+   commit byte-identical honest ledgers with equal rewrites, hub stats
+   and reject counts.  It prints the run's wall seconds, epochs, tx/s,
+   the lowest honest node's frontiers, the flush split, rewrites by
+   kind, rejects and launches, and K6 and K8 timed at their median call;
+7. after that, the DKG path (ops/dkg.py) and the share
    phase, each with the launch counts set to zero just before and read
    just after: ``run_dkg(n=32, threshold=11)`` on the card with all four
    fault knobs on distinct dealers and receivers, and
@@ -134,9 +152,13 @@ before printing any result.  It prints, in order:
    ``verify_dec_shares`` / ``verify_shares_batch`` (K8) with one tampered
    share, against the 'cpu' arm's shares, verdicts, plaintext and coin
    bits;
-7. the seconds the run took after the build, the ``{"kernels": [...]}``
+8. the seconds the run took after the build, the ``{"kernels": [...]}``
    JSON line (K1-K12, each with its launches per epoch on the async
-   path and, for those six, its ``async_n64`` record; ``OFF_PATH``'s
+   path and, for those six, its ``async_n64`` record, its launches and
+   rejects on the Byzantine path (``launches_async_n64_byz``,
+   ``rejects_async_n64_byz``: false verdicts for K6 and K8, null for a
+   kernel that gives none) and, for K6 and K8, its ``async_n64_byz``
+   record; ``OFF_PATH``'s
    kernels, mont_mul and sha256_rows,
    which no path launches, carry the paths' 0 with their kernel-phase
    launches and the reason beside it; K1's, K2's, K3's and K11's entries
@@ -153,6 +175,7 @@ failure exits non-zero before the last line.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -1900,9 +1923,10 @@ def profile_phase(torch, n: int, batch: int, **overrides) -> dict:
 
 # the asynchronous plane's path: BASELINE.json configs[2] (N=64, f=21,
 # 10k-tx batches; bench.py:96 measure_protocol's arrangement), one warm-up
-# kick, then ASYNC_EPOCHS measured kicks; its 'cpu' twin runs the warm-up
-# and the first measured kick
-ASYNC_N, ASYNC_BATCH, ASYNC_EPOCHS, ASYNC_TWIN_EPOCHS = 64, 10000, 2, 1
+# kick, then ASYNC_EPOCHS measured kicks (one: the Byzantine path after it
+# holds the script's time); its 'cpu' twin runs the warm-up and the
+# measured kick
+ASYNC_N, ASYNC_BATCH, ASYNC_EPOCHS, ASYNC_TWIN_EPOCHS = 64, 10000, 1, 1
 ASYNC_CONFIG_SEED, ASYNC_TX_SEED = 99, 13
 # the entry points the path must launch: K1 and K5 (each node's propose,
 # B=1), K6 and K3 (the hub's branch and decode waves), K8 (pooled CP
@@ -1911,16 +1935,17 @@ ASYNC_SITES = ("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
                "dual_pow", "pow_grouped")
 
 
-def async_cluster(n: int, batch: int, **overrides):
+def async_cluster(n: int, batch: int, behaviors=None, **overrides):
     """The async path's ``SimulatedCluster`` (``bench.py``
     ``measure_protocol``): the port's defaults unless ``overrides``
-    (``crypto_backend``, ``device``) say otherwise."""
+    (``crypto_backend``, ``device``) say otherwise; ``behaviors`` mounts
+    semantic Byzantine behaviours on their nodes."""
     from cleisthenes_tpu_torch.config import Config
     from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
 
     cfg = Config(n=n, batch_size=batch, seed=ASYNC_CONFIG_SEED, **overrides)
     return SimulatedCluster(config=cfg, key_seed=KEY_SEED, auto_propose=True,
-                            shared_hub=True)
+                            shared_hub=True, behaviors=behaviors)
 
 
 def async_kick(cluster, txs) -> float:
@@ -1959,12 +1984,15 @@ class AsyncRecorder:
         ("modexp_cuda", "dual_pow_fused"), ("modexp_cuda", "pow_fused_grouped"),
     )
 
-    def __init__(self, engines):
+    def __init__(self, engines, keep=()):
         import importlib
 
         from cleisthenes_tpu_torch.protocol import hub as hub_mod
 
         self.engines = engines
+        # entry point -> [(cloned args, cloned result)]: the calls whose
+        # verdicts are replayed through the plain versions afterwards
+        self.kept = {name: [] for name in keep}
         self.flush_s = 0.0
         self.flush_engine = {"engine_s": 0.0, "device_s": 0.0, "calls": 0}
         self.widths = {"branch": [], "decode": [], "share": []}
@@ -2002,7 +2030,12 @@ class AsyncRecorder:
 
             def kept(*args, _real=real, _name=name):
                 rec.calls[_name].append(args)
-                return _real(*args)
+                if _name not in rec.kept:
+                    return _real(*args)
+                inputs = tuple(a.clone() if hasattr(a, "data_ptr") else a for a in args)
+                out = _real(*args)
+                rec.kept[_name].append((inputs, out.clone()))
+                return out
 
             setattr(mod, name, kept)
             self._restore.append((mod, name, real))
@@ -2017,7 +2050,8 @@ def _p50(xs):
     return statistics.median(xs) if xs else None
 
 
-def async_kernel_records(torch, calls, b1_rate: float) -> dict:
+def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
+                         tag: str = "async_n64") -> dict:
     """Each entry point of the async path held to its plain version and
     timed (kernel by CUDA events, median of 20; plain, median of 3) on
     the inputs of one of its own calls in the measured run: K1 and K5 at
@@ -2042,7 +2076,7 @@ def async_kernel_records(torch, calls, b1_rate: float) -> dict:
         return t.cpu().numpy()
 
     out = {}
-    for name in ASYNC_SITES:
+    for name in sites:
         wrapped = {"merkle_forest": "build_forest", "merkle_verify": "verify_branches",
                    "dual_pow": "dual_pow_fused", "pow_grouped": "pow_fused_grouped"}.get(name, name)
         if not calls[wrapped]:
@@ -2122,7 +2156,7 @@ def async_kernel_records(torch, calls, b1_rate: float) -> dict:
                 if t_ms < rec["bound_ms"]:
                     rec["bound_ms"], rec["bound_by"] = t_ms, t_by
                 rec["tc_bound_ms"] = t_ms
-        print(f"kernel {name}@async_n64 {shape} (median of {n_calls} calls): "
+        print(f"kernel {name}@{tag} {shape} (median of {n_calls} calls): "
               f"equal={equal} kernel_ms={rec['kernel_ms']} plain_ms={rec['plain_ms']} "
               f"bound_ms={rec['bound_ms']} ({rec['bound_by']}) "
               f"x_bound={rec['kernel_ms'] / rec['bound_ms']}", flush=True)
@@ -2279,6 +2313,355 @@ def async_phase(torch, b1_rate: float, n: int = ASYNC_N, batch: int = ASYNC_BATC
     if bad:
         raise AssertionError(f"async-shape kernels disagree with their plain versions: {bad}")
     return {"launches": per_kick, "kernels": records}
+
+
+# the Byzantine path: the async path's deployment (BASELINE.json
+# configs[2]) at its full fault budget.  The first f nodes by id lie,
+# node i with BYZ_KINDS[i % 6] seeded BYZ_BEHAVIOR_SEED + i (tx_injector,
+# the fuzzer's planted violation, stays out), under a wire coalition of
+# the same nodes; BYZ_TXS random 64-byte transactions go round-robin to
+# the honest nodes, and one run_until_drained orders them all
+BYZ_KINDS = ("share_forger", "bad_dealer", "equivocator", "split_voter",
+             "selective_mute", "epoch_sprayer")
+BYZ_BEHAVIOR_SEED, BYZ_WIRE_SEED, BYZ_TX_SEED = 101, 7, 17
+BYZ_TXS = 10000
+# run_until_drained's cap on proposal rounds (a round runs the network to
+# quiet, and auto-propose chains its epochs): one round drained the
+# coalition run at N=64 in the CPU rehearsal; the slack is for the card
+BYZ_MAX_ROUNDS = 8
+
+
+def byzantine_coalition(f: int):
+    """(the coalition's ids, their behaviours): fresh behaviour objects
+    on every call, so a twin run draws the same lies from the start."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
+
+    bad = [f"node{i:03d}" for i in range(f)]
+    return bad, {b: make_behavior(BYZ_KINDS[i % len(BYZ_KINDS)],
+                                  seed=BYZ_BEHAVIOR_SEED + i)
+                 for i, b in enumerate(bad)}
+
+
+def byzantine_cluster(n: int, batch: int, **overrides):
+    """The Byzantine path's cluster: ``async_cluster`` with the
+    coalition's behaviours mounted and its wire adversary (drop 10 %,
+    tamper 5 %, reorder 20 % of the coalition's frames) on the channel
+    transport.  Returns (cluster, the coalition's ids)."""
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.utils.adversary import Coalition
+
+    f = Config(n=n).f
+    bad, behaviors = byzantine_coalition(f)
+    cluster = async_cluster(n, batch, behaviors=behaviors, **overrides)
+    cluster.fault_filter = (
+        Coalition(bad, seed=BYZ_WIRE_SEED).drop(0.1).tamper(0.05).reorder(0.2).filter)
+    return cluster, bad
+
+
+def byzantine_txs(count: int) -> list:
+    import numpy as np
+
+    rows = np.random.default_rng(BYZ_TX_SEED).integers(
+        0, 256, (count, TX_BYTES), dtype=np.uint8)
+    return [r.tobytes() for r in rows]
+
+
+class RejectTap:
+    """Counts, on any backend, what one cluster's hub waves reject: false
+    verdicts of the branch wave (``merkle.verify_batch``) and of the
+    pooled CP checks (``verify_share_groups``), and the decode groups
+    with the dispatches they cost (one fused call on 'cuda', three on
+    the host backend).  ``k8_calls``, the recorder's list of K8
+    arguments, lets it mark the K8 calls made inside a check that
+    returned a false verdict.  ``close`` restores what it wrapped."""
+
+    def __init__(self, cluster, k8_calls=None):
+        from cleisthenes_tpu_torch.protocol import hub as hub_mod
+
+        crypto = cluster._hub.crypto
+        self.branch_false = self.branch_verdicts = 0
+        self.share_false = self.share_checks = 0
+        self.decode_groups = self.decode_dispatches = 0
+        self.k8_false_calls = set()
+        tap = self
+        real_verify = crypto.merkle.verify_batch
+        real_shares = hub_mod.verify_share_groups
+        real_decode = crypto.decode_recheck_batch
+
+        def verify_batch(*args):
+            ok = real_verify(*args)
+            tap.branch_verdicts += len(ok)
+            tap.branch_false += len(ok) - int(sum(bool(x) for x in ok))
+            return ok
+
+        def verify_share_groups(*args, **kw):
+            first = len(k8_calls) if k8_calls is not None else 0
+            verdicts = real_shares(*args, **kw)
+            flat = [v for group in verdicts for v in group]
+            tap.share_checks += len(flat)
+            tap.share_false += flat.count(False)
+            if k8_calls is not None and False in flat:
+                tap.k8_false_calls.update(range(first, len(k8_calls)))
+            return verdicts
+
+        def decode_recheck_batch(*args):
+            out = real_decode(*args)
+            tap.decode_groups += 1
+            tap.decode_dispatches += out[2]
+            return out
+
+        crypto.merkle.verify_batch = verify_batch
+        hub_mod.verify_share_groups = verify_share_groups
+        crypto.decode_recheck_batch = decode_recheck_batch
+        self._restore = [(hub_mod, "verify_share_groups", real_shares)]
+        self._own = [(crypto.merkle, "verify_batch"), (crypto, "decode_recheck_batch")]
+
+    def close(self) -> None:
+        for obj, name, real in self._restore:
+            setattr(obj, name, real)
+        for obj, name in self._own:
+            delattr(obj, name)
+        self._restore, self._own = [], []
+
+    def counts(self) -> dict:
+        return {"branch_false": self.branch_false, "branch_verdicts": self.branch_verdicts,
+                "cp_false": self.share_false, "cp_checks": self.share_checks,
+                "decode_groups": self.decode_groups,
+                "decode_dispatches": self.decode_dispatches}
+
+
+def byzantine_run(cluster, bad, txs, max_rounds: int):
+    """Submit ``txs`` round-robin to the honest nodes and drain once;
+    returns (wall seconds, rounds used)."""
+    honest = [i for i in cluster.ids if i not in bad]
+    for i, tx in enumerate(txs):
+        cluster.submit(tx, node_id=honest[i % len(honest)])
+    t0 = time.perf_counter()
+    rounds = cluster.run_until_drained(max_rounds=max_rounds, skip=bad)
+    return time.perf_counter() - t0, rounds
+
+
+def byzantine_phase(torch, b1_rate: float, n: int = ASYNC_N, batch: int = ASYNC_BATCH,
+                    txs: int = BYZ_TXS, max_rounds: int = BYZ_MAX_ROUNDS, twin: bool = True,
+                    **overrides) -> dict:
+    """The async path's deployment at its full fault budget, through the
+    same entry point (``SimulatedCluster`` on the port's defaults unless
+    ``overrides`` say otherwise): f nodes lie (``byzantine_cluster``),
+    ``txs`` random transactions go to the honest nodes, and one
+    ``run_until_drained`` orders them, with the launch counts set to 0
+    just before.  Gates: (1) the honest nodes agree to a depth of at
+    least 2 and each commits every transaction exactly once, nothing
+    foreign, nothing left pending; (2) every behaviour lied; (3) the
+    modexp engines are the card's, ``ASYNC_SITES`` launch and nothing of
+    ``OFF_PATH`` (K7's launches are printed); (4) the branch wave's K6
+    calls returned false verdicts (BadDealer) and the pooled CP checks
+    false ones (ShareForger); on the card every K6 call, the median K8
+    call and every K8 call inside a check with a false verdict give on
+    their plain versions what they gave in the run; (5) with ``twin``, a
+    'cpu' twin (fresh behaviours and wire adversary from the same seeds,
+    the same transactions) commits byte-identical honest ledgers, each
+    behaviour lies as often, and the hub's stats and reject counts match
+    (dispatches less the decode dispatches, which the host backend
+    counts three to a group).  Prints the run's wall seconds, epochs,
+    tx/s, the lowest honest node's frontiers, the hub's flush split,
+    rewrites by kind, rejects by kernel and launches, then times K6 and
+    K8 at their median call.  Returns {"launches", "rejects", "kernels"}."""
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops.modmath import get_engine_degraded
+
+    t0 = time.perf_counter()
+    cluster, bad = byzantine_cluster(n, batch, **overrides)
+    cfg, hub = cluster.config, cluster._hub
+    honest = [i for i in cluster.ids if i not in bad]
+    keys = cluster.keys[honest[0]]
+    kinds = {b: type(beh).__name__ for b, beh in cluster.behaviors.items()}
+    print(
+        f"byzantine_phase: SimulatedCluster(n={n}, batch_size={batch}, seed="
+        f"{ASYNC_CONFIG_SEED}, key_seed={KEY_SEED}) backend={cfg.crypto_backend} "
+        f"device={cfg.device} f={cfg.f} k={cfg.data_shards} coalition={len(bad)} "
+        f"({bad[0]}..{bad[-1]}) kinds={json.dumps(collections.Counter(kinds.values()))} "
+        f"wire=Coalition(seed={BYZ_WIRE_SEED}).drop(0.1).tamper(0.05).reorder(0.2) "
+        f"txs={txs} setup_s={time.perf_counter() - t0}",
+        flush=True,
+    )
+    on_card = torch.device(cfg.device).type == "cuda" and cfg.crypto_backend == "cuda"
+    engines = [
+        get_engine_degraded(hub.crypto.engine_backend, gp, hub.crypto.device)
+        for gp in {keys.tpke_pub.group, keys.coin_pub.group}
+    ]
+    if on_card and any(eng.backend != "cuda" for eng in engines):
+        raise AssertionError("a modexp engine of the Byzantine path is not the card's")
+    tx_list = byzantine_txs(txs)
+    rec = AsyncRecorder(engines, keep=("verify_branches", "dual_pow_fused"))
+    tap = RejectTap(cluster, rec.calls["dual_pow_fused"])
+    st0, eng0 = hub.stats(), [dict(e.stats) for e in engines]
+    COUNTS.reset()
+    try:
+        wall, rounds = byzantine_run(cluster, bad, tx_list, max_rounds)
+        if on_card:
+            torch.cuda.synchronize()
+    finally:
+        tap.close()
+        rec.close()
+    launches = launch_counts()
+    # (1) agreement, exactly once on every honest node, nothing pending
+    depth = cluster.assert_agreement(skip=bad)
+    want = set(tx_list)
+    for nid in honest:
+        hb = cluster.nodes[nid]
+        got = [tx for b in hb.committed_batches for tx in b.tx_list()]
+        if (len(got) != len(tx_list) or set(got) != want
+                or hb.outstanding_tx_count()):
+            raise AssertionError(
+                f"{nid} committed {len(got)} txs ({len(set(got))} distinct, "
+                f"{len(set(got) - want)} foreign) of {len(tx_list)}, "
+                f"{hb.outstanding_tx_count()} outstanding, after {rounds} rounds")
+    if depth < 2:
+        raise AssertionError(f"honest agreement reached depth {depth} < 2")
+    # (2) every behaviour lied
+    rewrites = {b: beh.rewrites for b, beh in cluster.behaviors.items()}
+    if not all(rewrites.values()):
+        raise AssertionError(f"behaviours that never lied: "
+                             f"{[b for b, r in rewrites.items() if not r]}")
+    # (3) launches
+    for site in ASYNC_SITES:
+        if on_card and launches["sites"].get(site, 0) <= 0:
+            raise AssertionError(f"Byzantine path never launched {site}: {launches}")
+    for site in OFF_PATH:
+        if launches["sites"].get(site, 0):
+            raise AssertionError(f"Byzantine path launched {site}: {launches}")
+    # (4) the reject paths: on the 'cuda' backend every branch verdict is
+    # K6's and every CP check runs on K8
+    k6_false = sum(int((~out).sum()) for _args, out in rec.kept["verify_branches"])
+    rejects = {**tap.counts(), "k6_false": k6_false,
+               "k6_calls": len(rec.kept["verify_branches"]),
+               "k8_calls": len(rec.kept["dual_pow_fused"]),
+               "k8_calls_with_a_false_verdict": len(tap.k8_false_calls)}
+    if tap.branch_false <= 0 or tap.share_false <= 0:
+        raise AssertionError(f"no false branch or CP verdict in the Byzantine run: {rejects}")
+    if cfg.crypto_backend == "cuda" and (
+            k6_false != tap.branch_false or not tap.k8_false_calls):
+        raise AssertionError(f"the false verdicts are not K6's and K8's: {rejects}")
+    if on_card:
+        replay = byzantine_replay(torch, rec.kept, tap.k8_false_calls)
+        rejects["replayed"] = replay
+    n_lo = cluster.nodes[honest[0]]
+    m = n_lo.metrics
+    st = {k_: v - st0[k_] for k_, v in hub.stats().items()}
+    eng = {k_: sum(e.stats[k_] - o[k_] for e, o in zip(engines, eng0))
+           for k_ in ("calls", "engine_s", "device_s")}
+    by_kind = {}
+    for b, r in rewrites.items():
+        by_kind[kinds[b]] = by_kind.get(kinds[b], 0) + r
+    print(
+        f"byzantine_path: n={n} f={cfg.f} batch={batch} txs={len(tx_list)} "
+        f"wall_s={wall} rounds={rounds} epochs={depth} tx_per_s={len(tx_list) / wall} "
+        f"lowest_honest={honest[0]} ordered_epoch_p50_s={m.ordered_latency.p50} "
+        f"settled_epoch_p50_s={m.epoch_latency.p50}",
+        flush=True,
+    )
+    fe = rec.flush_engine
+    print(
+        f"byzantine_flush_split: wall_s={wall} flush_s={rec.flush_s} "
+        f"flush_engine_s={fe['engine_s']} flush_device_s={fe['device_s']} "
+        f"flush_packing_s={fe['engine_s'] - fe['device_s']} "
+        f"flush_host_python_s={rec.flush_s - fe['engine_s']} "
+        f"engine_calls_in_flush={fe['calls']} engine_s_whole_run={eng['engine_s']} "
+        f"device_s_whole_run={eng['device_s']} outside_flush_s={wall - rec.flush_s}",
+        flush=True,
+    )
+    print("byzantine_hub_stats " + json.dumps({
+        **st, "waves": {k_: len(v) for k_, v in rec.widths.items()},
+        "wave_width_p50": {k_: _p50(v) for k_, v in rec.widths.items()},
+    }, sort_keys=True), flush=True)
+    print("byzantine_rewrites " + json.dumps({"by_kind": by_kind, "by_node": rewrites},
+                                             sort_keys=True), flush=True)
+    print("byzantine_rejects " + json.dumps(rejects, sort_keys=True), flush=True)
+    print("launches_byzantine_path " + json.dumps(launches, sort_keys=True), flush=True)
+    print(f"byzantine_k7_launches: pow={launches['sites'].get('pow', 0)} "
+          f"pow_fused={launches['kernels'].get('pow_fused', 0)}", flush=True)
+    if twin:
+        twin_res = byzantine_twin(n, batch, tx_list, max_rounds, cluster, bad, st,
+                                  tap.counts())
+        print("byzantine_twin " + json.dumps(twin_res, sort_keys=True), flush=True)
+    records = (async_kernel_records(torch, rec.calls, b1_rate,
+                                    sites=("merkle_verify", "dual_pow"), tag="async_n64_byz")
+               if on_card else {})
+    bad_k = [name for name, r in records.items() if not r["equal"]]
+    if bad_k:
+        raise AssertionError(f"Byzantine-shape kernels disagree with their plain "
+                             f"versions: {bad_k}")
+    return {"launches": launches, "rejects": rejects, "kernels": records}
+
+
+def byzantine_replay(torch, kept, k8_false_calls) -> dict:
+    """Every kept K6 call and the median K8 call plus every K8 call
+    inside a check with a false verdict, through their plain versions on
+    the card: the results must equal the run's (K6's verdict vectors;
+    K8's values, from which the host draws the CP verdicts).  The K8
+    calls' rows go through one plain call (each row is its own dual
+    pow), whose cost is mostly per call."""
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+    from cleisthenes_tpu_torch.ops import sha256_cuda as sh
+
+    k8 = kept["dual_pow_fused"]
+    by_rows = sorted(range(len(k8)), key=lambda i: k8[i][0][0].shape[0])
+    picks = sorted(set(k8_false_calls) | {by_rows[len(by_rows) // 2]})
+    k6_differ = sum(
+        not torch.equal(sh.verify_branches_plain(*args), out)
+        for args, out in kept["verify_branches"])
+    by_modulus = {}
+    for i in picks:
+        by_modulus.setdefault(k8[i][0][4].p, []).append(i)
+    k8_rows = k8_differ = 0
+    for calls in by_modulus.values():
+        rows = [torch.cat([k8[i][0][j] for i in calls]) for j in range(4)]
+        got = mx.dual_pow_fused_plain(*rows, k8[calls[0]][0][4])
+        want = torch.cat([k8[i][1] for i in calls])
+        k8_rows += want.shape[0]
+        k8_differ += int((got != want).any(dim=1).sum())
+    torch.cuda.synchronize()
+    res = {"k6_calls": len(kept["verify_branches"]), "k6_differ": int(k6_differ),
+           "k8_calls": len(picks), "k8_rows": k8_rows, "k8_rows_differ": k8_differ}
+    if k6_differ or k8_differ:
+        raise AssertionError(f"replayed K6/K8 calls differ from their plain versions: {res}")
+    return res
+
+
+def byzantine_twin(n, batch, tx_list, max_rounds, card, bad, card_stats, card_rejects):
+    """The Byzantine run again on the 'cpu' backend from fresh objects and
+    the same seeds; raises unless it matches the card's run."""
+    t0 = time.perf_counter()
+    twin, _ = byzantine_cluster(n, batch, crypto_backend="cpu")
+    st0 = twin._hub.stats()
+    tap = RejectTap(twin)
+    try:
+        wall, rounds = byzantine_run(twin, bad, tx_list, max_rounds)
+    finally:
+        tap.close()
+    st = {k_: v - st0[k_] for k_, v in twin._hub.stats().items()}
+    twin_rejects = tap.counts()
+    card_l, twin_l = ledger_bytes(card), ledger_bytes(twin)
+    honest = [i for i in card.ids if i not in bad]
+    same_ledger = all(card_l[nid] == twin_l[nid] for nid in honest)
+    card_rw = {b: beh.rewrites for b, beh in card.behaviors.items()}
+    twin_rw = {b: beh.rewrites for b, beh in twin.behaviors.items()}
+
+    def comparable(stats, rej):
+        out = dict(stats, dispatches=stats["dispatches"] - rej["decode_dispatches"])
+        out.update({k_: rej[k_] for k_ in ("branch_false", "branch_verdicts", "cp_false",
+                                           "cp_checks", "decode_groups")})
+        return out
+
+    res = {"wall_s": wall, "rounds": rounds, "total_s": time.perf_counter() - t0,
+           "depth": len(twin_l[honest[0]]), "ledger_equal": same_ledger,
+           "rewrites_equal": card_rw == twin_rw,
+           "stats_equal": comparable(card_stats, card_rejects) == comparable(st, twin_rejects),
+           "stats": st, "rejects": twin_rejects}
+    if not (same_ledger and res["rewrites_equal"] and res["stats_equal"]):
+        raise AssertionError(f"the cpu twin of the Byzantine run differs: {res} "
+                             f"card stats {card_stats} rejects {card_rejects}")
+    return res
 
 
 def native_modpow_path() -> str:
@@ -2441,6 +2824,7 @@ def main() -> int:
         absent=("pow_grouped", "dual_pow", "pow"),
     )
     async_res = async_phase(torch, b1_rate)
+    byz_res = byzantine_phase(torch, b1_rate)
     dkg_launches = dkg_run_phase(torch, dev)
     dkg_steps = dkg_roster_phase(torch, dev)
     share_launches = share_phase(torch, dev)
@@ -2497,6 +2881,16 @@ def main() -> int:
         kernels[-1]["launches_async_n64_per_epoch"] = [
             kick["sites"].get(name, kick["kernels"].get(name, 0))
             for kick in async_res["launches"]]
+        kernels[-1]["launches_async_n64_byz"] = byz_res["launches"]["sites"].get(
+            name, byz_res["launches"]["kernels"].get(name, 0))
+        kernels[-1]["rejects_async_n64_byz"] = {
+            "merkle_verify": byz_res["rejects"]["k6_false"],
+            "dual_pow": byz_res["rejects"]["cp_false"]}.get(name)
+        if name in byz_res["kernels"]:
+            b_ = byz_res["kernels"][name]
+            kernels[-1]["async_n64_byz"] = {k_: b_[k_] for k_ in (
+                "shape", "calls", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by")}
         if name in async_res["kernels"]:
             a_ = async_res["kernels"][name]
             kernels[-1]["async_n64"] = {k_: a_[k_] for k_ in (

@@ -209,22 +209,27 @@ class ModEngine:
                 group.p.to_bytes(32, "little"), dtype=np.uint8
             ).copy()
 
+    # ModEngine.stats (calls, engine_s, device_s) is wall-clock
+    # observability for the benchmark's split of a wave; no timing value
+    # reaches a result, protocol state or wire bytes, hence the pragmas
     def _tally(self, t0: float) -> None:
         self.stats["calls"] += 1
-        self.stats["engine_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0  # staticcheck: allow[DET001] stats-only timing
+        self.stats["engine_s"] += dt
 
     def _dispatch(self, kernel, *arrays: np.ndarray) -> List[int]:
         """Upload the packed arrays to the device, run ``kernel`` on
         them and return its (B, value bytes) little-endian result as
         ints."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
         # the codecs' arrays are read-only views of bytes objects
         args = [
             torch.from_numpy(np.require(a, requirements="CW")).to(self.device)
             for a in arrays
         ]
         out = kernel(*args, self._spec).cpu().numpy()
-        self.stats["device_s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0  # staticcheck: allow[DET001] stats-only timing
+        self.stats["device_s"] += dt
         return bytes33_to_ints(out)
 
     def pow_batch_grouped(self, groups: Sequence[tuple]) -> List[List[int]]:
@@ -242,7 +247,7 @@ class ModEngine:
         flat_e = [e for _base, exps in groups for e in exps]
         if not flat_e:
             return [[] for _ in groups]
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
         if (
             self.backend == "cuda"
             and not self._wide
@@ -279,7 +284,7 @@ class ModEngine:
         assert len(bases) == len(exps)
         if not bases:
             return []
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
         out = self._pow(bases, exps)
         self._tally(t0)
         return out
@@ -326,7 +331,7 @@ class ModEngine:
         assert len(u1) == len(e1) == len(u2) == len(e2)
         if not u1:
             return []
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
         gp = self.group.p
         if self.backend == "cuda" and self._wide:
             vb = self._vb

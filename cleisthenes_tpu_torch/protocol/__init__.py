@@ -7,10 +7,13 @@ delegated to the batched ops plane (cleisthenes_tpu_torch.ops) through
 the BatchCrypto seam.  ``SimulatedCluster`` runs N of them in one
 process over the deterministic channel transport;
 ``LockstepCluster`` runs the same epoch's crypto as batched waves.
+The plane's own adversary — semantic Byzantine behaviors under valid
+MACs — lives in protocol.byzantine.
 """
 
 from cleisthenes_tpu_torch.protocol.acs import ACS
 from cleisthenes_tpu_torch.protocol.bba import BBA
+from cleisthenes_tpu_torch.protocol.byzantine import Behavior, make_behavior
 from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
 from cleisthenes_tpu_torch.protocol.honeybadger import (
     HoneyBadger,
@@ -33,6 +36,8 @@ __all__ = [
     "setup_keys",
     "SimulatedCluster",
     "LockstepCluster",
+    "Behavior",
+    "make_behavior",
     "ReconfigManager",
     "encode_reconfig_tx",
 ]

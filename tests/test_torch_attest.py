@@ -1,9 +1,6 @@
 # The reference's tests/test_attest.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_equivocator_detected_and_excluded_under_attested_log
-#   test_reduced_quorum_survives_equivocator_at_full_budget
 """Attested sender log tests (protocol/attest.py, Config.attested_log
 / Config.reduced_quorum).
 
@@ -31,6 +28,7 @@ from cleisthenes_tpu_torch.protocol.attest import (
     AttestingAuthenticator,
     payload_slots,
 )
+from cleisthenes_tpu_torch.protocol.byzantine import Equivocator
 from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
 from cleisthenes_tpu_torch.transport.message import (
     BbaPayload,
@@ -193,6 +191,37 @@ def _drive(cluster, bad=(), txs=12, max_rounds=30):
     return cluster.assert_agreement(skip=bad)
 
 
+def test_equivocator_detected_and_excluded_under_attested_log():
+    """The tentpole contract: an Equivocator under attested_log=True
+    ships self-incriminating refused=1 stamps — honest receivers
+    record counter-fork evidence (the exclusion surface the reconfig
+    plane evicts on), reject the lied frames, and commit identical
+    ledgers (equivocation degraded to omission of the lies)."""
+    bad = "node000"
+    c = SimulatedCluster(
+        n=4,
+        batch_size=8,
+        seed=13,
+        config=Config(n=4, batch_size=8, attested_log=True, crypto_backend="cpu"),
+        behaviors={bad: Equivocator(seed=21)},
+    )
+    depth = _drive(c, (bad,))
+    assert depth >= 1
+    assert c.behaviors[bad].rewrites > 0, "the adversary never lied"
+    # the equivocator's vault refused at least one forked slot
+    assert c.auths[bad].vault.refusals > 0
+    # fork evidence reached the directory, against the equivocator ONLY
+    assert c.attest_dir.accused == {bad}
+    reporters = {rep for rep, _, _ in c.attest_dir.fork_reports[bad]}
+    assert reporters and bad not in reporters
+    # every reporter holds the accusation at its authenticator
+    for nid in reporters:
+        assert c.auths[nid].accused_senders() == {bad}
+        assert c.auths[nid].attest_stats["forks"] > 0
+    # and no honest node was ever accused of anything
+    for nid in c.ids:
+        if nid != bad:
+            assert c.auths[nid].vault.refusals == 0
 
 
 def test_attested_log_clean_run_has_no_evidence():
@@ -272,3 +301,26 @@ def test_reduced_quorum_cluster_commits_n5():
     assert committed == 10
 
 
+def test_reduced_quorum_survives_equivocator_at_full_budget():
+    """n=5, f=2 reduced quorum with an equivocating member: the
+    attested log converts the equivocation to omission and the
+    remaining 4 >= n-f honest nodes stay live and consistent."""
+    bad = "node004"
+    c = SimulatedCluster(
+        n=5,
+        config=Config(
+            n=5,
+            batch_size=8,
+            attested_log=True,
+            reduced_quorum=True,
+            crypto_backend="cpu",
+        ),
+        seed=17,
+        behaviors={bad: Equivocator(seed=23)},
+    )
+    depth = _drive(c, (bad,), txs=10)
+    assert depth >= 1
+    assert c.behaviors[bad].rewrites > 0
+    # detection fired iff the equivocator actually forked a slot that
+    # reached a receiver; with per-receiver VAL/ECHO lies it must have
+    assert c.attest_dir.accused == {bad}

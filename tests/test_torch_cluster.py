@@ -1,8 +1,6 @@
 # The reference's tests/test_cluster.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_cluster_byzantine_and_crash
 """SimulatedCluster API + shared-hub regression tests."""
 
 import os
@@ -11,6 +9,7 @@ import numpy as np
 import pytest
 
 from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
+from cleisthenes_tpu_torch.utils.adversary import Coalition
 
 
 def test_cluster_basic_commit():
@@ -42,6 +41,14 @@ def test_cluster_per_node_hubs_equivalent():
     assert sa == sb
 
 
+def test_cluster_byzantine_and_crash():
+    c = SimulatedCluster(7, batch_size=8, seed=11, crypto_backend="cpu")
+    c.fault_filter = Coalition(["node005"], seed=11).drop(0.4).tamper(0.4).filter
+    c.crash("node006")
+    for i in range(14):
+        c.submit(b"bz-%02d" % i, node_id=c.ids[i % 5])  # only live nodes
+    c.run_epochs(skip=("node006",))
+    c.assert_agreement(skip=("node005", "node006"))
 
 
 def test_shared_hub_epoch_gc_is_node_scoped():

@@ -2,11 +2,6 @@
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
 # Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_bad_dealer_coalition_columnar_bank
-#   test_epoch_sprayer_coalition_columnar_bank
-#   test_epoch_sprayer_coalition_wave_router
-#   test_equivocator_coalition_columnar_bank
-#   test_equivocator_coalition_wave_router
 #   test_fuzz_band_columnar_delivery
 #   test_fuzz_band_scalar_routing_pinned
 #   test_fuzz_band_wave_routing
@@ -14,7 +9,6 @@
 #   test_fuzz_deep_sweep_wave_routing
 #   test_scalar_vs_columnar_identical_ledgers_grpc
 #   test_scalar_vs_wave_routing_identical_ledgers_grpc
-#   test_selective_mute_coalition_wave_router
 """Scalar vs columnar DELIVERY equivalence.
 
 The delivery-plane columnarization moved inbound work to wave
@@ -122,10 +116,6 @@ def test_transport_metrics_surface_delivery_counters():
         assert key in snap, snap
     assert snap["mac_verify_batches"] > 0
     assert snap["delivered"] > 0
-
-
-
-
 
 
 # Prints one line digesting the ledger bytes AND the columnar delivery
@@ -288,8 +278,6 @@ def test_router_metrics_schema_zeroed_on_scalar_arm():
         assert (snap["waves_routed"] > 0) == wave
 
 
-
-
 # ---------------------------------------------------------------------------
 # codec-level parity: decode_frame_shared vs decode_frame
 # ---------------------------------------------------------------------------
@@ -394,12 +382,6 @@ def _drive_coalition(behaviors: dict, n: int, seed: int) -> int:
     return depth
 
 
-
-
-
-
-
-
 # ---------------------------------------------------------------------------
 # fuzz bands on the columnar arm
 # ---------------------------------------------------------------------------
@@ -410,17 +392,97 @@ def _drive_coalition(behaviors: dict, n: int, seed: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.faults
+def test_equivocator_coalition_columnar_bank():
+    """An Equivocator sends CONFLICTING per-receiver RBC roots: the
+    EchoBank's per-(root, instance) counting must keep the quorums
+    separate — conflating them would fork or stall the honest
+    majority."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
+
+    behaviors = {"node003": make_behavior("equivocator", seed=31)}
+    depth = _drive_coalition(behaviors, n=4, seed=13)
+    assert depth >= 1
+    assert behaviors["node003"].rewrites > 0, "adversary never lied"
 
 
+@pytest.mark.faults
+def test_bad_dealer_coalition_columnar_bank():
+    """BadDealer's structurally-valid wrong shards must burn their
+    one-vote bank slots without wedging honest quorums."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
+
+    behaviors = {"node003": make_behavior("bad_dealer", seed=32)}
+    depth = _drive_coalition(behaviors, n=4, seed=17)
+    assert depth >= 1
+    assert behaviors["node003"].rewrites > 0
 
 
+@pytest.mark.faults
+def test_epoch_sprayer_coalition_columnar_bank():
+    """EpochSprayer's far-future spam exercises the demux window in
+    front of the bank (no bank rows may be minted for epochs outside
+    the window)."""
+    from cleisthenes_tpu_torch.protocol.byzantine import (
+        CompositeBehavior,
+        make_behavior,
+    )
+
+    behaviors = {
+        "node003": CompositeBehavior(
+            [
+                make_behavior("epoch_sprayer", seed=33),
+                make_behavior("split_voter", seed=34),
+            ]
+        )
+    }
+    depth = _drive_coalition(behaviors, n=4, seed=19)
+    assert depth >= 1
 
 
+@pytest.mark.faults
+def test_equivocator_coalition_wave_router():
+    """Equivocating per-receiver roots through the ROUTER's echo/ready
+    columns: the per-(root, instance) EchoBank counting must keep the
+    quorums separate when whole waves land in one dispatch."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
+
+    assert Config(crypto_backend="cpu").wave_routing is True  # the arm under test
+    behaviors = {"node003": make_behavior("equivocator", seed=41)}
+    depth = _drive_coalition(behaviors, n=4, seed=23)
+    assert depth >= 1
+    assert behaviors["node003"].rewrites > 0, "adversary never lied"
 
 
+@pytest.mark.faults
+def test_epoch_sprayer_coalition_wave_router():
+    """EpochSprayer's far-future spam exercises the router's
+    column-granular demux window (no state minted outside it) and the
+    per-payload CATCHUP renudge cadence."""
+    from cleisthenes_tpu_torch.protocol.byzantine import (
+        CompositeBehavior,
+        make_behavior,
+    )
+
+    behaviors = {
+        "node003": CompositeBehavior(
+            [
+                make_behavior("epoch_sprayer", seed=42),
+                make_behavior("split_voter", seed=43),
+            ]
+        )
+    }
+    depth = _drive_coalition(behaviors, n=4, seed=29)
+    assert depth >= 1
 
 
+@pytest.mark.faults
+def test_selective_mute_coalition_wave_router():
+    """SelectiveMute starves chosen links: waves arrive asymmetric
+    per receiver, so the router's per-receiver bundles must still
+    drive the honest quorums to agreement."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
 
-
-
-
+    behaviors = {"node003": make_behavior("selective_mute", seed=44)}
+    depth = _drive_coalition(behaviors, n=4, seed=31)
+    assert depth >= 1

@@ -2,9 +2,7 @@
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
 # Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_equivocator_coalition_columnar_egress
 #   test_scalar_vs_columnar_identical_ledgers_grpc
-#   test_selective_mute_coalition_columnar_egress
 """Scalar vs columnar EGRESS equivalence.
 
 The egress columnarization moved outbound work to wave granularity:
@@ -367,10 +365,6 @@ def test_wire_frames_identical_across_arms_and_hash_seeds():
 # ---------------------------------------------------------------------------
 
 
-
-
-
-
 # ---------------------------------------------------------------------------
 # semantic coalitions against the columnar egress arm
 # ---------------------------------------------------------------------------
@@ -400,5 +394,36 @@ def _drive_coalition(behaviors: dict, n: int, seed: int):
     return depth, cluster.net
 
 
+@pytest.mark.faults
+def test_equivocator_coalition_columnar_egress():
+    """An Equivocator's per-receiver lies enter BETWEEN the protocol
+    plane and the coalescer, so the columnar flush must sign each
+    receiver's distinct bundle separately (per-receiver signable)
+    while the honest run's shared bodies still fold through the
+    memo — conflating the two would either leak one receiver's lie to
+    another or fail the MACs wholesale."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
+
+    assert Config(crypto_backend="cpu").egress_columnar is True  # the arm under test
+    behaviors = {"node003": make_behavior("equivocator", seed=51)}
+    depth, net = _drive_coalition(behaviors, n=4, seed=37)
+    assert depth >= 1
+    assert behaviors["node003"].rewrites > 0, "adversary never lied"
+    # the liar's per-receiver fan-out makes mixed egress waves whose
+    # unrewritten payload objects are shared across receivers — the
+    # encode memo must actually dedup them
+    stats = net.delivery_stats()
+    assert stats["encode_memo_hits"] > 0, stats
 
 
+@pytest.mark.faults
+def test_selective_mute_coalition_columnar_egress():
+    """SelectiveMute silences chosen links: the muted receivers'
+    entries simply vanish from the egress wave, and the remaining
+    per-receiver frames must still sign and deliver (honest quorums
+    reach agreement without the starved links)."""
+    from cleisthenes_tpu_torch.protocol.byzantine import make_behavior
+
+    behaviors = {"node003": make_behavior("selective_mute", seed=52)}
+    depth, _net = _drive_coalition(behaviors, n=4, seed=41)
+    assert depth >= 1

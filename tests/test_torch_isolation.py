@@ -5,7 +5,8 @@ Importing every module of ``cleisthenes_tpu_torch`` (and chip_smoke.py,
 wide_sweep.py) in a fresh interpreter, then running the host-side paths
 whose imports are deferred to the call — the DKG, the ``'cpp'`` codec
 over the native GF(2^8) library, the scalar share ops, one epoch of an
-N=4 ``SimulatedCluster`` on ``device='cpu'`` — must leave ``jax`` and
+N=4 ``SimulatedCluster`` on ``device='cpu'``, an equivocator under a
+wire coalition, lanes with the mempool and the ingress plane — must leave ``jax`` and
 ``cleisthenes_tpu`` out of ``sys.modules``; and on a machine without a
 GPU the defaults, which put the work on the card, must raise rather than
 run on the CPU."""
@@ -47,7 +48,10 @@ assert tpke.verify_shares(pub, coin.coin_base(b"c"), [sh], b"coin|c", backend="c
 # the asynchronous plane's modules, and one N=4 epoch on the card's path
 # (the kernels' plain versions)
 plane = {
-    "utils." + m for m in ("lockcheck", "determinism", "memo", "log", "metrics", "trace", "watchdog")
+    "utils." + m
+    for m in (
+        "lockcheck", "determinism", "memo", "log", "metrics", "trace", "watchdog"
+    )
 } | {"core." + m for m in ("queue", "request", "member", "ledger")} | {
     "transport." + m for m in ("message", "base", "wan", "channel", "broadcast")
 } | {
@@ -55,6 +59,9 @@ plane = {
                               "honeybadger", "router", "attest", "cluster")
 }
 assert len(plane) == 27 and {"cleisthenes_tpu_torch." + m for m in plane} <= set(names)
+robust = {"core.merge", "core.mempool", "utils.adversary", "protocol.byzantine",
+          "transport.ingress"}
+assert {"cleisthenes_tpu_torch." + m for m in robust} <= set(names)
 from cleisthenes_tpu_torch.protocol import SimulatedCluster
 cluster = SimulatedCluster(n=4, batch_size=8, device="cpu", key_seed=2)
 for i in range(8):
@@ -63,6 +70,31 @@ for hb in cluster.nodes.values():
     hb.start_epoch()
 cluster.net.run()
 assert cluster.assert_agreement() >= 1 and cluster.pending() == 0
+# the robustness planes: an equivocator (its second proposal on the
+# kernels' plain versions) under a wire coalition, then lanes, the
+# mempool and the ingress plane on the host backend
+from cleisthenes_tpu_torch.protocol import make_behavior
+from cleisthenes_tpu_torch.utils.adversary import Coalition
+liar = make_behavior("equivocator", seed=1)
+byz = SimulatedCluster(n=4, batch_size=8, device="cpu", key_seed=2,
+                       behaviors={"node003": liar})
+byz.fault_filter = Coalition(["node003"], seed=1).drop(0.1).filter
+for i in range(6):
+    byz.submit(b"byz-%d" % i, node_id=byz.ids[i % 3])
+byz.run_until_drained(skip=("node003",))
+assert byz.assert_agreement(skip=("node003",)) >= 1 and liar.rewrites > 0
+lanes = SimulatedCluster(
+    config=Config(n=4, batch_size=8, lanes=2, mempool_capacity=16,
+                  crypto_backend="cpu"),
+    key_seed=2,
+)
+gate = lanes.ingress()
+from cleisthenes_tpu_torch.transport.message import IngressStatus
+for i in range(6):
+    ack = gate.submit("c0", i, 5, b"ing-%d" % i)
+    assert IngressStatus(ack.status) is IngressStatus.OK
+lanes.run_until_drained()
+assert lanes.assert_agreement() >= 1
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -80,7 +112,7 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 47, out.stdout
+    assert int(count) >= 52, out.stdout
     assert bad == "[]", out.stdout
 
 

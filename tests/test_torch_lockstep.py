@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cleisthenes_tpu.protocol.spmd import LockstepCluster as RefCluster
+from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
 from cleisthenes_tpu_torch.protocol.spmd import LockstepCluster
 
 # (n, batch_size, transactions, epochs)
@@ -158,6 +159,24 @@ def test_lockstep_commits_all_txs():
     assert c.pending_tx_count() == 0
 
 
+def test_lockstep_matches_message_passing_cluster():
+    """The flagship equivalence check: lockstep vs the full async path
+    (the port's SimulatedCluster), both on the kernels' plain versions."""
+    n, batch, total = 4, 64, 256
+    lock = LockstepCluster(n=n, batch_size=batch, key_seed=11, device="cpu")
+    sim = SimulatedCluster(
+        n=n, batch_size=batch, key_seed=11, seed=5, device="cpu"
+    )
+    for i in range(total):
+        lock.submit(_tx(i))
+        sim.submit(_tx(i))
+    lock.run_epochs()
+    sim.run_epochs()
+    lock_txs = _committed(lock)
+    sim_txs = {tx for b in sim.committed("node000") for tx in b.tx_list()}
+    assert lock_txs == sim_txs == {_tx(i) for i in range(total)}
+
+
 def test_lockstep_multi_epoch_dedup_and_order():
     """Committed batches dedupe across proposers like the live commit
     rule; epochs drain queues in order."""
@@ -197,6 +216,31 @@ def test_lockstep_serial_coin_blocks_match_doubling():
     assert _committed(a) == _committed(b) == {_tx(i) for i in range(80)}
     assert a.last_stats["bba_rounds"] == b.last_stats["bba_rounds"]
     assert b.last_stats["coin_waves"] == b.last_stats["bba_rounds"]
+
+
+def test_lockstep_aggressive_initial_block_matches():
+    """coin_block_initial=4 (the aggressive first block) changes
+    dispatch batching only: committed transactions and round counts
+    are identical to the default schedule."""
+    a = LockstepCluster(n=5, batch_size=40, key_seed=9, device="cpu")
+    b = LockstepCluster(
+        n=5, batch_size=40, key_seed=9, device="cpu", coin_block_initial=4
+    )
+    for i in range(80):
+        a.submit(_tx(i))
+        b.submit(_tx(i))
+    a.run_epochs()
+    b.run_epochs()
+    assert _committed(a) == _committed(b) == {_tx(i) for i in range(80)}
+    assert a.last_stats["bba_rounds"] == b.last_stats["bba_rounds"]
+    assert b.last_stats["coin_waves"] <= a.last_stats["coin_waves"]
+
+
+def test_lockstep_conflicting_config_rejected():
+    from cleisthenes_tpu_torch.config import Config
+
+    with pytest.raises(ValueError):
+        LockstepCluster(n=7, config=Config(n=4, batch_size=16, device="cpu"))
 
 
 def test_lockstep_reconfig_boundary():

@@ -239,7 +239,10 @@ def dual_model(rows, p: int, w: int, team: int):
             accs = [tabs[i][0][digit(r[1], t) if any1 else 0] for i, r in enumerate(warp)]
             for d in range(t, -1, -1):
                 if any(digit(r[3], d) for r in warp):
-                    accs = [mont(a, tabs[i][1][digit(r[3], d)], p) for i, (a, r) in enumerate(zip(accs, warp))]
+                    accs = [
+                        mont(a, tabs[i][1][digit(r[3], d)], p)
+                        for i, (a, r) in enumerate(zip(accs, warp))
+                    ]
                     n += len(warp)
                 if d == 0:
                     break
@@ -247,7 +250,10 @@ def dual_model(rows, p: int, w: int, team: int):
                     accs = [mont(a, a, p) for a in accs]
                     n += len(warp)
                 if any(digit(r[1], d - 1) for r in warp):
-                    accs = [mont(a, tabs[i][0][digit(r[1], d - 1)], p) for i, (a, r) in enumerate(zip(accs, warp))]
+                    accs = [
+                        mont(a, tabs[i][0][digit(r[1], d - 1)], p)
+                        for i, (a, r) in enumerate(zip(accs, warp))
+                    ]
                     n += len(warp)
         out += [mont(a, 1, p) for a in accs]
         prods.append(n + len(warp))
@@ -276,8 +282,15 @@ def test_dual_model_skips_the_second_table_for_lagrange_warps(name):
     makes those of the dual pow; both as the schedule's count says."""
     rnd = random.Random(5)
     w, per_warp = PLANS[name]["dual_window"], 32 // PLANS[name]["team"]
-    cp = [(rnd.randrange(P), rnd.randrange(Q) | (1 << 254), rnd.randrange(P), rnd.randrange(Q) | (1 << 254))
-          for _ in range(per_warp)]
+    cp = [
+        (
+            rnd.randrange(P),
+            rnd.randrange(Q) | (1 << 254),
+            rnd.randrange(P),
+            rnd.randrange(Q) | (1 << 254),
+        )
+        for _ in range(per_warp)
+    ]
     lag = [(rnd.randrange(P), rnd.randrange(Q) | (1 << 254), 1, 0) for _ in range(per_warp)]
     _, (n_cp, n_lag) = dual_model(cp + lag, P, w, PLANS[name]["team"])
     assert n_cp == per_warp * dual_products(255, w, False)
@@ -371,7 +384,10 @@ def test_least_comb_counts_the_cheapest_width_per_base(seed):
         want += min(best)
     assert got == want
     for w in range(2, 9):
-        one_width = sum(comb_products(sum(r == j for r in rows), w, 256) for j in range(len(bases)))
+        one_width = sum(
+            comb_products(sum(r == j for r in rows), w, 256)
+            for j in range(len(bases))
+        )
         assert got <= one_width
 
 

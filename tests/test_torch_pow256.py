@@ -160,8 +160,11 @@ def test_pow_plans_match_kernel_source_and_wrapper():
         assert plan["team"] in (1, 2, 4, 8, 16, 32) and plan["threads"] % 32 == 0
         assert 1 <= plan["window"] <= 8
     small = PLANS["PowSmallPlan"]
-    assert mx.POW_SMALL_ROWS_PER_SM == small["min_blocks"] * small["threads"] // small["team"]
-    assert mx.POW_SORT_WORDS == int(re.search(r"kSortWords = (\d+);", SOURCE).group(1)) == 2 * 257 + 1
+    assert mx.POW_SMALL_ROWS_PER_SM == (
+        small["min_blocks"] * small["threads"] // small["team"]
+    )
+    sort_words = int(re.search(r"kSortWords = (\d+);", SOURCE).group(1))
+    assert mx.POW_SORT_WORDS == sort_words == 2 * 257 + 1
 
 
 @pytest.mark.parametrize("name", POWS)
@@ -263,7 +266,11 @@ def test_pow_model_zero_warp_makes_no_products():
     domain, and gives 1 (0^0 = 1, as the reference's binary method); a
     warp of short exponents takes a 1-bit window and no table products."""
     rnd = random.Random(3)
-    bases = [0] + [rnd.randrange(2**264) for _ in range(31)] + [rnd.randrange(P) for _ in range(32)]
+    bases = (
+        [0]
+        + [rnd.randrange(2**264) for _ in range(31)]
+        + [rnd.randrange(P) for _ in range(32)]
+    )
     exps = [0] * 32 + [1, 2, 3] * 10 + [3, 1]
     got, prods = pow_model(bases, exps, P, 4, 1, order=False)
     assert got == [pow(b, e, P) for b, e in zip(bases, exps)]

@@ -93,7 +93,10 @@ def gf2_apply_model8(mat: np.ndarray, x: np.ndarray) -> np.ndarray:
 def byte_perm(a: np.ndarray, b: np.ndarray, sel: int) -> np.ndarray:
     """CUDA's __byte_perm: result byte i is byte (sel >> 4i) & 7 of the
     8 bytes b:a (a the low four)."""
-    src = np.stack([(a >> (8 * i)) & 0xFF for i in range(4)] + [(b >> (8 * i)) & 0xFF for i in range(4)])
+    src = np.stack(
+        [(a >> (8 * i)) & 0xFF for i in range(4)]
+        + [(b >> (8 * i)) & 0xFF for i in range(4)]
+    )
     out = np.zeros_like(a)
     for i in range(4):
         out |= src[(sel >> (4 * i)) & 7] << np.uint32(8 * i)
@@ -230,7 +233,9 @@ def test_rs_encode_takes_only_a_systematic_matrix():
     x = _t(rng.integers(0, 256, (2, 4, 3)).astype(np.uint8))
     a = gf256.systematic_rs_matrix(9, 4)
     enc = _t(a)
-    with pytest.raises(ValueError, match="rs_encode: the matrix was not checked by mark_systematic"):
+    with pytest.raises(
+        ValueError, match="rs_encode: the matrix was not checked by mark_systematic"
+    ):
         rs_cuda.rs_encode(enc, x)
     with pytest.raises(ValueError, match="mark_systematic"):
         rs_cuda.decode_recheck(_t(np.eye(4, dtype=np.uint8)), enc, x)
