@@ -69,8 +69,8 @@ before printing any result.  It prints, in order:
    the GF codecs also the tensor-core bound, their bit products at the
    b1 yardstick against their bytes);
 3. three paths through ``LockstepCluster`` with its defaults (the
-   'cuda' backend), each committing 3 epochs of random 64-byte
-   transactions, every one exactly once, with the launch counts set to
+   'cuda' backend), each committing 3 epochs (the N=512 path 2) of
+   random 64-byte transactions, every one exactly once, with the launch counts set to
    zero just before and read just after:
    - N=128 (``n=128, batch_size=10000, key_seed=77``): the RBC entry
      points, the comb (share issue) and the dual pow (CP verify with
@@ -131,7 +131,34 @@ before printing any result.  It prints, in order:
    and reject counts.  It prints the run's wall seconds, epochs, tx/s,
    the lowest honest node's frontiers, the flush split, rewrites by
    kind, rejects and launches, and K6 and K8 timed at their median call;
-7. after that, the DKG path (ops/dkg.py) and the share
+7. then the system as it is deployed (``grpc_phase``): BASELINE.json
+   configs[1] (N=16, f=5, 4,096-transaction batches) as 16
+   ``ValidatorHost``s, ``node00``-``node15``, each with its own
+   ``CryptoHub``, dispatcher thread, gRPC server and 15 dialed streams,
+   on 127.0.0.1 ephemeral ports, with batch logs and telemetry
+   (``obs_port=0``) on and the port's defaults: a warm-up of 4,096 random
+   64-byte transactions, then, with the launch counts set to 0, 8,192
+   (``default_rng(19)``) submitted round-robin and proposed on every host
+   until every host has committed every one.  Every host must commit the
+   same batch bytes at every epoch and every transaction once, on the
+   card's modexp engines, every dispatcher thread on the card's default
+   stream, launching the async path's entry points with K7 in K9's place
+   (``GRPC_SITES``: a host's share waves stay under the comb's 64
+   exponents) and nothing of ``OFF_PATH``; node 0's /metrics must parse, its transport and hub
+   counters equal ``node.metrics.snapshot()``, and /healthz and every
+   peer be UP; no host thread may outlive ``stop``; and a 'cpu' twin of
+   the same roster, seeds and transactions must commit the same set of
+   transactions, byte-equal over the epochs whose included proposers
+   agree (each epoch's proposers printed for both runs).  It prints the
+   run's seconds and tx/s, node 0's ordered and settled p50, the hubs'
+   flushes and dispatches (summed and the median host), the transport
+   counters, launches, and the run split into the hubs' flush time
+   (host Python, packing, device leg) and the rest; then its kernels at
+   their median call.  After it, the runnable entry point,
+   ``cleisthenes_tpu_torch.demo.main(["--n", "4", "--txs", "64",
+   "--batch-size", "16", "--dkg"])`` on its defaults (``demo_phase``),
+   must return 0 with K7 launched by its DKG;
+8. after that, the DKG path (ops/dkg.py) and the share
    phase, each with the launch counts set to zero just before and read
    just after: ``run_dkg(n=32, threshold=11)`` on the card with all four
    fault knobs on distinct dealers and receivers, and
@@ -152,9 +179,11 @@ before printing any result.  It prints, in order:
    ``verify_dec_shares`` / ``verify_shares_batch`` (K8) with one tampered
    share, against the 'cpu' arm's shares, verdicts, plaintext and coin
    bits;
-8. the seconds the run took after the build, the ``{"kernels": [...]}``
+9. the seconds the run took after the build, the ``{"kernels": [...]}``
    JSON line (K1-K12, each with its launches per epoch on the async
-   path and, for those six, its ``async_n64`` record, its launches and
+   path and on the gRPC path (``launches_grpc_n16``) and, for those six,
+   its ``async_n64`` record and, for the gRPC path's, its ``grpc_n16``
+   record, its launches and
    rejects on the Byzantine path (``launches_async_n64_byz``,
    ``rejects_async_n64_byz``: false verdicts for K6 and K8, null for a
    kernel that gives none) and, for K6 and K8, its ``async_n64_byz``
@@ -164,7 +193,7 @@ before printing any result.  It prints, in order:
    launches and the reason beside it; K1's, K2's, K3's and K11's entries
    carry both their bounds, K5's and K6's their N=512 time and bound;
    K7's carries the finalize call's times, bound and plan, its launches
-   on the decrypt-combine and DKG paths, and the 5,504-item record
+   on the decrypt-combine, DKG and demo paths, and the 5,504-item record
    beside),
    the card line again, and last
    ``{"ok": true, "device": {...}}``.
@@ -179,10 +208,14 @@ import collections
 import hashlib
 import json
 import os
+import queue
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -236,6 +269,10 @@ MODP14 = int(
 WIDE_GROUPS = ((384, P384, 2048), (768, OAKLEY1, 512), (2048, MODP14, 128))
 
 N, F, BATCH, EPOCHS, KEY_SEED, TX_BYTES = 128, 42, 10000, 3, 77, 64
+# the N=512 path's depth: 1 epoch since the gRPC path joined the script
+# and waits for its roster to go idle (its epochs take ~15 s each; the
+# script must end well inside 1,200 s)
+N512_EPOCHS = 1
 
 
 def card_line() -> str:
@@ -1976,12 +2013,18 @@ class AsyncRecorder:
     ``stats`` inside it and the hub's per-flush column widths), and the
     arguments of every call of the six entry points, kept to time the
     kernels at the path's own shapes afterwards.  ``close`` restores
-    every wrapped function."""
+    every wrapped function.  Flushes may run in many threads at once (one
+    hub a validator on the gRPC path): a lock guards the tallies, and
+    ``flush_spans`` keeps each flush's (start, end) for the union of
+    their wall time; there the engines' deltas inside a flush also hold
+    other threads' calls, so that path reads the engines' stats over the
+    whole run instead."""
 
     WRAPPED = (
         ("rs_cuda", "rs_encode"), ("sha256_cuda", "build_forest"),
         ("sha256_cuda", "verify_branches"), ("rs_cuda", "decode_recheck"),
         ("modexp_cuda", "dual_pow_fused"), ("modexp_cuda", "pow_fused_grouped"),
+        ("modexp_cuda", "pow_fused"),
     )
 
     def __init__(self, engines, keep=()):
@@ -1997,7 +2040,9 @@ class AsyncRecorder:
         self.flush_engine = {"engine_s": 0.0, "device_s": 0.0, "calls": 0}
         self.widths = {"branch": [], "decode": [], "share": []}
         self.flush_dispatches = []
+        self.flush_spans = []
         self.calls = {name: [] for _mod, name in self.WRAPPED}
+        self._lock = threading.Lock()
         self._restore = []
         real_flush = hub_mod.CryptoHub.flush
         rec = self
@@ -2011,16 +2056,19 @@ class AsyncRecorder:
             try:
                 return real_flush(hub)
             finally:
-                rec.flush_s += time.perf_counter() - t0
-                for eng, old in zip(rec.engines, before):
-                    for k_ in rec.flush_engine:
-                        rec.flush_engine[k_] += eng.stats[k_] - old[k_]
+                t1 = time.perf_counter()
                 now = hub.stats()
-                for kind in rec.widths:
-                    w = now[kind + "_items"] - st[kind + "_items"]
-                    if w:
-                        rec.widths[kind].append(w)
-                rec.flush_dispatches.append(now["dispatches"] - st["dispatches"])
+                with rec._lock:
+                    rec.flush_s += t1 - t0
+                    rec.flush_spans.append((t0, t1))
+                    for eng, old in zip(rec.engines, before):
+                        for k_ in rec.flush_engine:
+                            rec.flush_engine[k_] += eng.stats[k_] - old[k_]
+                    for kind in rec.widths:
+                        w = now[kind + "_items"] - st[kind + "_items"]
+                        if w:
+                            rec.widths[kind].append(w)
+                    rec.flush_dispatches.append(now["dispatches"] - st["dispatches"])
 
         hub_mod.CryptoHub.flush = flush
         self._restore.append((hub_mod.CryptoHub, "flush", real_flush))
@@ -2066,7 +2114,8 @@ def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
 
     # the argument whose first dimension counts a call's rows
     row_arg = {"rs_encode": 1, "build_forest": 0, "verify_branches": 0,
-               "decode_recheck": 2, "dual_pow_fused": 0, "pow_fused_grouped": 1}
+               "decode_recheck": 2, "dual_pow_fused": 0, "pow_fused_grouped": 1,
+               "pow_fused": 0}
 
     def median_call(name):
         cs = sorted(calls[name], key=lambda a: a[row_arg[name]].shape[0])
@@ -2078,7 +2127,8 @@ def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
     out = {}
     for name in sites:
         wrapped = {"merkle_forest": "build_forest", "merkle_verify": "verify_branches",
-                   "dual_pow": "dual_pow_fused", "pow_grouped": "pow_fused_grouped"}.get(name, name)
+                   "dual_pow": "dual_pow_fused", "pow_grouped": "pow_fused_grouped",
+                   "pow": "pow_fused"}.get(name, name)
         if not calls[wrapped]:
             raise AssertionError(f"async path made no {wrapped} call")
         args, n_calls = median_call(wrapped)
@@ -2128,6 +2178,12 @@ def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
             nbytes = b * (3 * 33 + 2 * 32)
             products = dual_products(np, *(host(a) for a in args[:4]))
             shape = f"rows={b}"
+        elif name == "pow":
+            kern, plain = (lambda: mx.pow_fused(*args)), (lambda: mx.pow_fused_plain(*args))
+            b = args[0].shape[0]
+            nbytes = b * (33 + 32 + 33)
+            products = pow_products(np, host(args[0]), host(args[1]))
+            shape = f"rows={b} plan={mx.pow_plan(b, sms_of(torch, args[0].device))}"
         else:  # pow_grouped
             kern, plain = (lambda: mx.pow_fused_grouped(*args)), \
                 (lambda: mx.pow_fused_grouped_plain(*args))
@@ -2145,7 +2201,7 @@ def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
                   for g, w in zip(got_t, want_t))
         rec = {"equal": equal, "max_abs_err": float(err), "shape": shape, "calls": n_calls,
                "kernel_ms": time_ms(torch, kern, 20), "plain_ms": time_ms(torch, plain, 3)}
-        if name in ("dual_pow", "pow_grouped"):
+        if name in ("dual_pow", "pow_grouped", "pow"):
             rec["bound_ms"], rec["bound_by"] = mont_bound(nbytes, products)
             rec["products"] = products
         else:
@@ -2664,6 +2720,509 @@ def byzantine_twin(n, batch, tx_list, max_rounds, card, bad, card_stats, card_re
     return res
 
 
+# the gRPC path: BASELINE.json configs[1] ("N=16 f=5, 4k-tx batch") as the
+# system is deployed, one ValidatorHost a validator (its own CryptoHub,
+# dispatcher thread, gRPC server and dialed streams), node00-node15 in
+# this process on 127.0.0.1 ephemeral ports, batch logs on and obs_port=0;
+# a warm-up of GRPC_WARM_TXS transactions, then GRPC_TXS measured, each
+# submitted round-robin and proposed on every host until every host has
+# committed every one; a 'cpu' twin takes the same roster, seeds and
+# transactions
+GRPC_N, GRPC_BATCH, GRPC_TXS, GRPC_WARM_TXS = 16, 4096, 8192, 4096
+GRPC_CONFIG_SEED, GRPC_TX_SEED = 99, 19
+GRPC_TIMEOUT_S = 600.0
+# the roster is idle once its counters hold still this long (its epochs
+# take seconds each at n=16); it must be idle within the timeout
+GRPC_QUIET_S, GRPC_QUIET_TIMEOUT_S = 2.0, 120.0
+# the entry points the path must launch: the async path's, but K7 (pow)
+# where it has K9 (pow_grouped): a host's hub issues at most n coin or
+# decryption shares a wave, 3 exponentiations each, below the comb's
+# COMB_MIN = 64 at n=16, so its grouped calls flatten into one generic
+# pow; K9 runs only where a wave reaches 64 (its records are kept then)
+GRPC_SITES = ("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
+              "dual_pow", "pow")
+# the threads a host starts; none may outlive its stop()
+HOST_THREADS = ("dispatch-", "conn-read-", "conn-ingest-", "redial-", "obs-",
+                "grpc-server")
+
+
+def grpc_hosts(n: int, batch: int, log_dir: str, **overrides):
+    """``n`` ValidatorHosts on the port's defaults unless ``overrides``
+    (``crypto_backend``, ``device``) say otherwise, each with a batch log
+    in ``log_dir`` and telemetry on an ephemeral port; all listen, then
+    each dials every peer from a thread of its own, as the demo boots
+    them.  Returns the hosts by id."""
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.protocol.honeybadger import setup_keys
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    cfg = Config(n=n, batch_size=batch, seed=GRPC_CONFIG_SEED, obs_port=0, **overrides)
+    ids = [f"node{i:02d}" for i in range(n)]
+    keys = setup_keys(cfg, ids, seed=KEY_SEED)
+    hosts = {}
+    try:
+        for nid in ids:
+            hosts[nid] = ValidatorHost(cfg, nid, ids, keys[nid],
+                                       batch_log_path=os.path.join(log_dir, f"{nid}.log"))
+        addrs = {nid: h.listen() for nid, h in hosts.items()}
+        dials = [threading.Thread(target=h.connect, args=(addrs,)) for h in hosts.values()]
+        for t in dials:
+            t.start()
+        for t in dials:
+            t.join(60)
+        short = {nid: len(h.pool) for nid, h in hosts.items() if len(h.pool) != n - 1}
+        if short or any(t.is_alive() for t in dials):
+            raise AssertionError(f"gRPC roster did not connect: pool sizes {short}")
+    except BaseException:
+        stop_hosts(hosts)
+        raise
+    return hosts
+
+
+def host_threads() -> list:
+    return sorted(t.name for t in threading.enumerate() if t.name.startswith(HOST_THREADS))
+
+
+def stop_hosts(hosts) -> list:
+    """Stop every host, all at once as the processes of a deployment
+    would (a thread each); returns the names of host threads still alive
+    after a grace of a few seconds (their joins are bounded)."""
+    stops = [threading.Thread(target=h.stop) for h in hosts.values()]
+    for t in stops:
+        t.start()
+    for t in stops:
+        t.join(60)
+    deadline = time.monotonic() + 5.0
+    while host_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return host_threads()
+
+
+def grpc_commit_all(hosts, txs, timeout: float = GRPC_TIMEOUT_S) -> float:
+    """Submit ``txs`` round-robin over the hosts and propose on every host
+    (again each second: a host mid-epoch ignores it, and auto-propose
+    chains the epochs) until every host has committed every one of them;
+    returns the wall seconds from the first propose."""
+    ids = sorted(hosts)
+    for i, tx in enumerate(txs):
+        hosts[ids[i % len(ids)]].submit(tx)
+    want = set(txs)
+    left = {nid: set(want) for nid in ids}
+    t0 = time.perf_counter()
+    next_propose = 0.0
+    while any(left.values()):
+        now = time.perf_counter()
+        if now - t0 > timeout:
+            raise AssertionError(
+                f"gRPC roster left {sum(map(len, left.values()))} commits after {timeout} s")
+        if now >= next_propose:
+            for h in hosts.values():
+                h.propose()
+            next_propose = now + 1.0
+        idle = True
+        for nid, h in hosts.items():
+            while True:
+                try:
+                    _epoch, batch_ = h.wait_commit(timeout=0)
+                except queue.Empty:
+                    break
+                left[nid].difference_update(batch_.tx_list())
+                idle = False
+        if idle:
+            time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def grpc_ledgers(hosts, settle_s: float = 10.0) -> dict:
+    """({host: its batches as WAL record bodies}, {host: its batches}),
+    read on each host's dispatcher once every host has the same depth
+    (or ``settle_s`` passed)."""
+    from cleisthenes_tpu_torch.core.ledger import encode_batch_body
+
+    deadline = time.monotonic() + settle_s
+    while True:
+        batches = {nid: h.committed_batches() for nid, h in hosts.items()}
+        if len({len(b) for b in batches.values()}) == 1 or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    return {nid: [encode_batch_body(e, b) for e, b in enumerate(bs)]
+            for nid, bs in batches.items()}, batches
+
+
+def parse_exposition(text: str) -> dict:
+    """Prometheus text exposition -> {(name, ((label, value), ...)): value};
+    raises on a line that is not ``name{labels} value``."""
+    import re
+
+    label = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r"(\w+)\{(.*)\} (\S+)", line)
+        if m is None:
+            raise AssertionError(f"unparsable exposition line: {line!r}")
+        labels = tuple(sorted(label.findall(m.group(2))))
+        out[(m.group(1), labels)] = float(m.group(3).replace("+Inf", "inf"))
+    return out
+
+
+# the counters the scrape gate holds /metrics to, by exposition family:
+# (family, snapshot block, ((result label, key), ...)) and (family,
+# block, key)
+SCRAPE_LABELLED = (
+    ("transport_frames_total", "transport", (("delivered", "delivered"),
+                                             ("rejected", "rejected"))),
+    ("transport_decode_memo_total", "transport", (("hit", "decode_memo_hits"),
+                                                  ("miss", "decode_memo_misses"))),
+    ("transport_encode_memo_total", "transport", (("hit", "encode_memo_hits"),
+                                                  ("miss", "encode_memo_misses"))))
+SCRAPE_PLAIN = (("transport_frames_decoded_total", "transport", "frames_decoded"),
+                ("transport_mac_verify_batches_total", "transport", "mac_verify_batches"),
+                ("transport_frames_encoded_total", "transport", "frames_encoded"),
+                ("transport_mac_sign_batches_total", "transport", "mac_sign_batches"),
+                ("dedup_absorbed_total", "transport", "dedup_absorbed"),
+                ("coin_share_batches_total", "hub", "coin_share_batches"),
+                ("coin_share_items_total", "hub", "coin_share_items"))
+
+
+def scrape_counters(nid: str, snap: dict) -> dict:
+    """{(exposition name, labels): value} of the scrape gate's counters in
+    node ``nid``'s ``metrics.snapshot()``."""
+    out = {}
+    for fam, block, pairs in SCRAPE_LABELLED:
+        for lab, key in pairs:
+            out[(f"cleisthenes_{fam}", (("node", nid), ("result", lab)))] = float(
+                snap[block][key])
+    for fam, block, key in SCRAPE_PLAIN:
+        out[(f"cleisthenes_{fam}", (("node", nid),))] = float(snap[block][key])
+    return out
+
+
+def grpc_quiesce(hosts, still_s: float = GRPC_QUIET_S,
+                 timeout: float = GRPC_QUIET_TIMEOUT_S) -> float:
+    """Wait for the roster to go idle after a run.  The last propose kick
+    of ``grpc_commit_all`` may open an (empty) epoch that every host
+    follows, so traffic goes on after the last commit.  The card run and
+    its twin wait after the warm-up too: a host that orders an epoch
+    while the next transactions are still being submitted proposes from
+    a half-filled queue, and its batches then depend on thread timing.
+    Idle: every
+    dispatcher has drained its mailbox and no host's scrape counters
+    (``scrape_counters``) moved over ``still_s``.  Returns the seconds
+    waited; raises if the roster is not idle within ``timeout``."""
+    t0 = time.monotonic()
+
+    def reading():
+        for h in hosts.values():
+            h.dispatcher.drain()
+        return {nid: scrape_counters(nid, h.node.metrics.snapshot())
+                for nid, h in hosts.items()}
+
+    last = reading()
+    while True:
+        time.sleep(still_s)
+        now = reading()
+        if now == last:
+            return time.monotonic() - t0
+        if time.monotonic() - t0 > timeout:
+            moved = {nid: {k[0]: (last[nid][k], v) for k, v in now[nid].items()
+                           if last[nid][k] != v} for nid in now}
+            raise AssertionError(f"the gRPC roster was still busy {timeout} s after its "
+                                 f"run: {({nid: m for nid, m in moved.items() if m})}")
+        last = now
+
+
+def scrape_gate(host) -> dict:
+    """Fetch /metrics and /healthz from ``host``'s telemetry port and hold
+    them to ``node.metrics.snapshot()`` read before and after the scrape
+    (equal reads: the counters were still; the caller first waits for the
+    roster to go idle, ``grpc_quiesce``): every transport frame counter
+    and the hub's coin dispatch counters (``scrape_counters``), every
+    peer UP."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{host.obs.port}"
+    nid = host.node_id
+
+    def fetch(path):
+        with urllib.request.urlopen(base + path, timeout=10) as resp:
+            return resp.status, resp.read().decode("utf-8")
+
+    for _attempt in range(20):
+        before = host.node.metrics.snapshot()
+        status, text = fetch("/metrics")
+        after = host.node.metrics.snapshot()
+        if scrape_counters(nid, before) == scrape_counters(nid, after):
+            break
+        time.sleep(0.25)
+    else:
+        raise AssertionError("the node's counters never held still for a scrape")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    got = parse_exposition(text)
+    want = scrape_counters(nid, after)
+    differ = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if differ:
+        raise AssertionError(f"/metrics differs from node.metrics.snapshot(): {differ}")
+    peers = {dict(k[1])["peer"]: dict(k[1])["state"] for k in got
+             if k[0] == "cleisthenes_peer_health"}
+    h_status, h_body = fetch("/healthz")
+    health = json.loads(h_body)
+    if (len(peers) != len(host.members) - 1 or set(peers.values()) != {"up"}
+            or h_status != 200 or health["status"] != "up"):
+        raise AssertionError(f"peers not all UP: /healthz {h_status} {health}, "
+                             f"/metrics peer states {peers}")
+    return {"families_parsed": len({k[0] for k in got}), "samples": len(got),
+            "counters_checked": len(want), "peers_up": len(peers),
+            "healthz": health["status"],
+            "frames_delivered": after["transport"]["delivered"],
+            "frames_rejected": after["transport"]["rejected"],
+            "mac_verify_batches": after["transport"]["mac_verify_batches"],
+            "encode_memo_hits": after["transport"]["encode_memo_hits"],
+            "frames_encoded": after["transport"]["frames_encoded"]}
+
+
+def proposer_sets(batches) -> list:
+    return [sorted(b.contributions) for b in batches]
+
+
+def grpc_twin(n, batch, warm, txs, card_ledgers, card_batches) -> dict:
+    """The gRPC run again on the 'cpu' backend: the same roster, seeds and
+    transactions.  It must commit the same set of transactions, and byte-
+    equal batches at every epoch of the longest prefix over which both
+    runs' ACS included the same proposers (real sockets order messages by
+    thread timing, so the included sets may differ, and a proposer left
+    out keeps its transactions for a later epoch: past the first
+    difference the batches legitimately differ).  Prints each epoch's
+    proposers for both runs; on a difference, names the epochs."""
+    t0 = time.perf_counter()
+    log_dir = tempfile.mkdtemp(prefix="grpc-twin-")
+    hosts = grpc_hosts(n, batch, log_dir, crypto_backend="cpu")
+    try:
+        warm_s = grpc_commit_all(hosts, warm)
+        grpc_quiesce(hosts)
+        run_s = grpc_commit_all(hosts, txs)
+        quiet_s = grpc_quiesce(hosts)
+        ledgers, batches = grpc_ledgers(hosts)
+    finally:
+        leftover = stop_hosts(hosts)
+        shutil.rmtree(log_dir, ignore_errors=True)
+    nid = sorted(hosts)[0]
+    card_p, twin_p = proposer_sets(card_batches[nid]), proposer_sets(batches[nid])
+    prefix = 0
+    while (prefix < min(len(card_p), len(twin_p))
+           and card_p[prefix] == twin_p[prefix]):
+        prefix += 1
+    card_set = {tx for b in card_batches[nid] for tx in b.tx_list()}
+    twin_set = {tx for b in batches[nid] for tx in b.tx_list()}
+    differ = sorted({e for h in ledgers for e in range(prefix)
+                     if ledgers[h][e] != card_ledgers[h][e]})
+    twin_agree = len({tuple(v) for v in ledgers.values()}) == 1
+    res = {"warm_s": warm_s, "run_s": run_s, "quiesce_s": quiet_s,
+           "total_s": time.perf_counter() - t0,
+           "depth": len(twin_p), "card_depth": len(card_p), "same_proposer_prefix": prefix,
+           "prefix_bytes_equal": not differ, "epochs_differing": differ,
+           "tx_set_equal": card_set == twin_set,
+           "twin_agreement": twin_agree, "leftover_threads": leftover}
+    for e in range(max(len(card_p), len(twin_p))):
+        print(f"grpc_proposers epoch {e}: card="
+              f"{','.join(p[-2:] for p in card_p[e]) if e < len(card_p) else '-'} "
+              f"cpu={','.join(p[-2:] for p in twin_p[e]) if e < len(twin_p) else '-'}",
+              flush=True)
+    if differ or not (res["tx_set_equal"] and twin_agree) or leftover:
+        raise AssertionError(f"the cpu twin of the gRPC run differs: {res}")
+    return res
+
+
+def grpc_phase(torch, b1_rate: float, n: int = GRPC_N, batch: int = GRPC_BATCH,
+               txs: int = GRPC_TXS, warm_txs: int = GRPC_WARM_TXS, twin: bool = True,
+               **overrides) -> dict:
+    """The deployment its users run: ``n`` ValidatorHosts (``grpc_hosts``)
+    over localhost gRPC on the port's defaults unless ``overrides`` say
+    otherwise.  After a warm-up of ``warm_txs`` transactions, the launch
+    counts are set to 0 and ``txs`` random 64-byte transactions
+    (``default_rng(GRPC_TX_SEED)``) are committed on every host
+    (``grpc_commit_all``).  Gates: every host commits the same batch
+    bytes at every epoch, every transaction exactly once, none pending;
+    every host's modexp engines are the card's and every dispatcher
+    thread launches on the card's default stream; ``GRPC_SITES`` launch
+    and nothing of ``OFF_PATH``; node 0's /metrics parses and its
+    transport and hub counters equal its snapshot, /healthz and every
+    peer UP (``scrape_gate``); the six kernels' median calls equal their
+    plain versions (K9's too where it ran); no host thread outlives
+    ``stop``; with ``twin``, the
+    'cpu' twin (``grpc_twin``).  Prints the run's seconds and tx/s, node
+    0's ordered and settled p50, the hubs' flushes and dispatches, the
+    transport counters, launches, and the split of the run into the
+    hubs' flush time (host Python, packing and device leg from the
+    engines' stats) and the rest; then times the path's kernels at
+    their median call (``async_kernel_records``).  Returns {"launches",
+    "kernels", "run_s"}."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops.modmath import get_engine_degraded
+
+    t0 = time.perf_counter()
+    threads_before = host_threads()
+    log_dir = tempfile.mkdtemp(prefix="grpc-logs-")
+    hosts = grpc_hosts(n, batch, log_dir, **overrides)
+    rec = None
+    try:
+        h0 = hosts[sorted(hosts)[0]]
+        cfg = h0.config
+        keys = h0.keys
+        print(
+            f"grpc_phase: {n} ValidatorHosts (Config(n={n}, batch_size={batch}, seed="
+            f"{GRPC_CONFIG_SEED}, obs_port=0), key_seed={KEY_SEED}) backend="
+            f"{cfg.crypto_backend} device={cfg.device} f={cfg.f} k={cfg.data_shards} "
+            f"pipeline_depth={cfg.pipeline_depth} hubs={len({id(h.node.hub) for h in hosts.values()})} "
+            f"streams_dialed={sum(len(h.pool) for h in hosts.values())} batch_logs=on "
+            f"boot_s={time.perf_counter() - t0}",
+            flush=True,
+        )
+        on_card = torch.device(cfg.device).type == "cuda" and cfg.crypto_backend == "cuda"
+        groups = {keys.tpke_pub.group, keys.coin_pub.group}
+        engines = {}
+        for h in hosts.values():
+            for gp in groups:
+                eng = get_engine_degraded(h.node.hub.crypto.engine_backend, gp,
+                                          h.node.hub.crypto.device)
+                engines[id(eng)] = eng
+        engines = list(engines.values())
+        if on_card and any(eng.backend != "cuda" for eng in engines):
+            raise AssertionError("a modexp engine of the gRPC path is not the card's")
+        if on_card:
+            dev = torch.device(cfg.device)
+            index = torch.cuda.current_device() if dev.index is None else dev.index
+            default = torch.cuda.default_stream(index).cuda_stream
+            streams = {nid: h.dispatcher.call_sync(
+                lambda: torch._C._cuda_getCurrentRawStream(index))
+                for nid, h in hosts.items()}
+            if set(streams.values()) != {default}:
+                raise AssertionError(f"a dispatcher thread is not on the default stream: "
+                                     f"{streams} (default {default})")
+            print(f"grpc_streams: every dispatcher thread's current stream is the "
+                  f"card's default stream ({default})", flush=True)
+        rows = np.random.default_rng(GRPC_TX_SEED).integers(
+            0, 256, (warm_txs + txs, TX_BYTES), dtype=np.uint8)
+        all_txs = [r.tobytes() for r in rows]
+        warm, measured = all_txs[:warm_txs], all_txs[warm_txs:]
+        warm_s = grpc_commit_all(hosts, warm)
+        warm_quiet_s = grpc_quiesce(hosts)
+        print(f"grpc warm-up: {warm_txs} txs committed on every host in {warm_s} s, "
+              f"the roster idle {warm_quiet_s} s later", flush=True)
+        st0 = {nid: h.node.hub.stats() for nid, h in hosts.items()}
+        eng0 = [dict(e.stats) for e in engines]
+        rec = AsyncRecorder(engines)
+        COUNTS.reset()
+        run_s = grpc_commit_all(hosts, measured)
+        if on_card:
+            torch.cuda.synchronize()
+        rec.close()
+        launches = launch_counts()
+        # the run's own readings, before the roster's trailing traffic
+        st = {nid: {k_: v - st0[nid][k_] for k_, v in h.node.hub.stats().items()}
+              for nid, h in hosts.items()}
+        eng = {k_: sum(e.stats[k_] - o[k_] for e, o in zip(engines, eng0))
+               for k_ in ("calls", "engine_s", "device_s")}
+        m = h0.node.metrics
+        ordered_p50, settled_p50 = m.ordered_latency.p50, m.epoch_latency.p50
+        run_epochs = len(h0.committed_batches())
+        quiet_s = grpc_quiesce(hosts)
+        ledgers, batches = grpc_ledgers(hosts)
+        # gates: agreement, exactly once, nothing pending, launches
+        ref = ledgers[h0.node_id]
+        split = [nid for nid, lg in ledgers.items() if lg != ref]
+        if split:
+            raise AssertionError(f"hosts {split} committed other batches than {h0.node_id}")
+        committed = [tx for b in batches[h0.node_id] for tx in b.tx_list()]
+        pending = sum(h.node.outstanding_tx_count() for h in hosts.values())
+        if pending or len(committed) != len(all_txs) or set(committed) != set(all_txs):
+            raise AssertionError(
+                f"gRPC path committed {len(committed)} txs ({len(set(committed))} "
+                f"distinct) of {len(all_txs)}, {pending} outstanding")
+        for site in GRPC_SITES:
+            if on_card and launches["sites"].get(site, 0) <= 0:
+                raise AssertionError(f"gRPC path never launched {site}: {launches}")
+        for site in OFF_PATH:
+            if launches["sites"].get(site, 0):
+                raise AssertionError(f"gRPC path launched {site}: {launches}")
+        scrape = scrape_gate(h0)
+        print(
+            f"grpc_path: n={n} f={cfg.f} batch={batch} txs={len(measured)} (+{warm_txs} "
+            f"warm-up) committed_once={len(committed)} epochs={run_epochs} "
+            f"epochs_once_idle={len(batches[h0.node_id])} run_s={run_s} "
+            f"tx_per_s={len(measured) / run_s} quiesce_s={quiet_s} "
+            f"ordered_epoch_p50_s={ordered_p50} settled_epoch_p50_s={settled_p50}",
+            flush=True,
+        )
+        flushes = sorted(s_["flushes"] for s_ in st.values())
+        dispatches = sorted(s_["dispatches"] for s_ in st.values())
+        print("grpc_hub_stats " + json.dumps({
+            "flushes_sum": sum(flushes), "flushes_median_host": _p50(flushes),
+            "dispatches_sum": sum(dispatches), "dispatches_median_host": _p50(dispatches),
+            "by_kind_sum": {k_: sum(s_[k_] for s_ in st.values()) for k_ in (
+                "branch_items", "decode_items", "share_items", "coin_issue_batches",
+                "dec_issue_batches")},
+            "wave_width_p50": {k_: _p50(v) for k_, v in rec.widths.items()},
+            "waves": {k_: len(v) for k_, v in rec.widths.items()},
+        }, sort_keys=True), flush=True)
+        print("grpc_transport " + json.dumps(scrape, sort_keys=True), flush=True)
+        flush_wall = _merged_us(rec.flush_spans)
+        print(
+            f"grpc_flush_split: run_s={run_s} flush_thread_s={rec.flush_s} "
+            f"flush_wall_s={flush_wall} flushes_timed={len(rec.flush_spans)} "
+            f"engine_s={eng['engine_s']} device_s={eng['device_s']} "
+            f"packing_s={eng['engine_s'] - eng['device_s']} "
+            f"flush_host_python_thread_s={rec.flush_s - eng['engine_s']} "
+            f"engine_calls={eng['calls']} outside_flush_wall_s={run_s - flush_wall}",
+            flush=True,
+        )
+        print("launches_grpc_path " + json.dumps(launches, sort_keys=True), flush=True)
+    finally:
+        if rec is not None:
+            rec.close()
+        leftover = stop_hosts(hosts)
+        shutil.rmtree(log_dir, ignore_errors=True)
+    if leftover:
+        raise AssertionError(f"host threads outlived stop(): {leftover}")
+    print(f"grpc_teardown: {n} hosts stopped, host threads before {len(threads_before)} "
+          f"after {len(host_threads())}", flush=True)
+    if twin:
+        twin_res = grpc_twin(n, batch, warm, measured, ledgers, batches)
+        print("grpc_twin " + json.dumps(twin_res, sort_keys=True), flush=True)
+    sites = GRPC_SITES + (("pow_grouped",) if rec.calls["pow_fused_grouped"] else ())
+    records = (async_kernel_records(torch, rec.calls, b1_rate, sites=sites, tag="grpc_n16")
+               if on_card else {})
+    bad = [name for name, r in records.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"gRPC-shape kernels disagree with their plain versions: {bad}")
+    return {"launches": launches, "kernels": records, "run_s": run_s}
+
+
+def demo_phase(torch) -> dict:
+    """The system's runnable entry point on its defaults (the card):
+    ``cleisthenes_tpu_torch.demo.main`` with --dkg, 4 validators over
+    localhost gRPC, with the launch counts set to 0 just before; it must
+    return 0, and its DKG must have launched K7 (``pow``)."""
+    from cleisthenes_tpu_torch import demo
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+
+    args = ["--n", "4", "--txs", "64", "--batch-size", "16", "--dkg"]
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    rc = demo.main(args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"demo: main({args}) rc={rc} wall_s={time.perf_counter() - t0} "
+          f"launches={json.dumps(launches['sites'], sort_keys=True)}", flush=True)
+    if rc != 0 or launches["sites"].get("pow", 0) <= 0:
+        raise AssertionError(f"the demo failed (rc={rc}) or launched no K7: {launches}")
+    return launches
+
+
 def native_modpow_path() -> str:
     """Path of the host's native modexp library, which BBA runs on in
     this slice; raises if it did not build or load, since the main
@@ -2759,8 +3318,7 @@ def main() -> int:
         probe = pool.submit(mma_probe.build_probe)  # its nvcc beside the kernels'
         paths = build.build_all()
         probe.result()
-    for name in paths:
-        build.load(name)
+    build.load_all()
     print(
         f"build: {len(paths)} libraries from csrc/*.cu and the mma probe in "
         f"{time.perf_counter() - t0} s (nvcc {build.nvcc_path()})",
@@ -2813,7 +3371,7 @@ def main() -> int:
     dec_launches = decrypt_combine_phase(torch, cluster, dev)
     del cluster
     launches_512, _ = main_path(
-        torch, 512, 4096, EPOCHS, WAVES_512,
+        torch, 512, 4096, N512_EPOCHS, WAVES_512,
         sites=("rs16_encode", "rs16_decode", "merkle_forest", "merkle_verify",
                "pow_grouped", "dual_pow"),
     )
@@ -2825,6 +3383,8 @@ def main() -> int:
     )
     async_res = async_phase(torch, b1_rate)
     byz_res = byzantine_phase(torch, b1_rate)
+    grpc_res = grpc_phase(torch, b1_rate)
+    demo_launches = demo_phase(torch)
     dkg_launches = dkg_run_phase(torch, dev)
     dkg_steps = dkg_roster_phase(torch, dev)
     share_launches = share_phase(torch, dev)
@@ -2836,6 +3396,7 @@ def main() -> int:
         "decrypt_combine": dec_launches["sites"].get("pow", 0),
         "dkg_run_n32": dkg_launches["g256"]["sites"].get("pow", 0),
         "dkg_n128_steps": sum(r["pow_launches"] for r in dkg_steps.values()),
+        "demo_dkg": demo_launches["sites"].get("pow", 0),
     }
     counts["pow"] = sum(pow_by_path.values())
     counts["gf65536_apply"] = launches_512["kernels"].get("gf65536_apply", 0)
@@ -2886,6 +3447,13 @@ def main() -> int:
         kernels[-1]["rejects_async_n64_byz"] = {
             "merkle_verify": byz_res["rejects"]["k6_false"],
             "dual_pow": byz_res["rejects"]["cp_false"]}.get(name)
+        kernels[-1]["launches_grpc_n16"] = grpc_res["launches"]["sites"].get(
+            name, grpc_res["launches"]["kernels"].get(name, 0))
+        if name in grpc_res["kernels"]:
+            g_ = grpc_res["kernels"][name]
+            kernels[-1]["grpc_n16"] = {k_: g_[k_] for k_ in (
+                "shape", "calls", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by")}
         if name in byz_res["kernels"]:
             b_ = byz_res["kernels"][name]
             kernels[-1]["async_n64_byz"] = {k_: b_[k_] for k_ in (

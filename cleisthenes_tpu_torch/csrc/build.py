@@ -9,11 +9,16 @@ interface, no PyTorch headers, so a build takes seconds.  The first
 ``load()`` in a process builds every missing library at once, one
 ``nvcc`` per source started together, so ``python3 chip_smoke.py``
 alone builds everything.  A failed build, a missing ``nvcc`` or a
-failed launch raises.
+failed launch raises.  Loading, building and counting are thread-safe:
+the validators of a deployment launch from a thread each, so one lock
+serialises ``load``/``build_all`` (the first launches of many threads
+build once) and another each ``LaunchCounts.add``.
 
 Each C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; ``launch()`` makes one call on a tensor's card
-and current stream, turns a nonzero code into an exception and counts
+and current stream (a thread's current stream is the card's default
+stream unless it set another, so the launches of many threads run in
+the order they were issued), turns a nonzero code into an exception and counts
 it.  ``COUNTS`` tallies every launch by kernel (``gf256_apply``,
 ``gf65536_apply``, ``sha256_rows``, ``merkle_forest``, ``merkle_verify``,
 ``mont_mul``,
@@ -39,6 +44,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -81,26 +87,33 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 
 
 class LaunchCounts:
-    """Plain launch counters: one add per kernel launch, by kernel and
-    by every entry point (site) the launch was made through."""
+    """Launch counters: one add per kernel launch, by kernel and by
+    every entry point (site) the launch was made through.  ``add`` and
+    ``reset`` hold a lock: a ``Counter`` increment is a read-modify-write
+    that loses counts between threads."""
 
     def __init__(self) -> None:
         self.kernels: collections.Counter = collections.Counter()
         self.sites: collections.Counter = collections.Counter()
+        self._lock = threading.Lock()
 
     def add(self, kernel: str, sites: Tuple[str, ...]) -> None:
-        self.kernels[kernel] += 1
-        for site in sites:
-            self.sites[site] += 1
+        with self._lock:
+            self.kernels[kernel] += 1
+            for site in sites:
+                self.sites[site] += 1
 
     def reset(self) -> None:
-        self.kernels.clear()
-        self.sites.clear()
+        with self._lock:
+            self.kernels.clear()
+            self.sites.clear()
 
 
 COUNTS = LaunchCounts()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# held by load() and build_all(): one build at a time in the process
+_BUILD_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -127,10 +140,23 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def tmp_path(out: Path) -> Path:
+    """Where ``out`` is written before its atomic rename: unique to the
+    process and the thread, so concurrent builders never share a file."""
+    return out.with_name(
+        f"{out.stem}.tmp{os.getpid()}-{threading.get_ident()}.so"
+    )
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every csrc/*.cu whose library is missing, all in
     parallel; return {source stem: library path}.  Raises with the
     compiler's output if any build fails."""
+    with _BUILD_LOCK:
+        return _build_all_locked()
+
+
+def _build_all_locked() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(_CSRC.glob("*.cu"))
     paths = {src.stem: library_path(src) for src in sources}
@@ -139,9 +165,9 @@ def build_all() -> Dict[str, Path]:
         out = paths[src.stem]
         if out.exists():
             continue
-        # per-process tmp name, atomic rename: concurrent builders race
-        # benignly
-        tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+        # a tmp name per process and thread, atomic rename: concurrent
+        # builders race benignly
+        tmp = tmp_path(out)
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
@@ -168,16 +194,26 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    paths = build_all()
-    for stem, path in paths.items():
-        if stem in _LIBS:
-            continue
-        cdll = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[stem].items():
-            getattr(cdll, fn).argtypes = argtypes
-            getattr(cdll, fn).restype = ctypes.c_int
-        _LIBS[stem] = cdll
-    return _LIBS[name]
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:  # another thread loaded it meanwhile
+            return lib
+        paths = build_all()
+        for stem, path in paths.items():
+            if stem in _LIBS:
+                continue
+            cdll = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[stem].items():
+                getattr(cdll, fn).argtypes = argtypes
+                getattr(cdll, fn).restype = ctypes.c_int
+            _LIBS[stem] = cdll
+        return _LIBS[name]
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build and load every kernel library now (a process that will run
+    threads, such as gRPC validators, builds before it starts them)."""
+    return {stem: load(stem) for stem in SIGNATURES}
 
 
 def check(rc: int, what: str) -> None:
@@ -216,5 +252,7 @@ __all__ = [
     "check",
     "launch",
     "load",
+    "load_all",
     "nvcc_path",
+    "tmp_path",
 ]

@@ -22,6 +22,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
@@ -29,6 +30,9 @@ _DIR = Path(__file__).parent
 _BUILD_DIR = _DIR.parent / "_build" / "native"
 _LIBS: Dict[str, Optional[ctypes.CDLL]] = {}
 _ERRORS: Dict[str, str] = {}
+# one compile-and-load at a time: validators running in threads reach
+# their first host modexp together
+_LOAD_LOCK = threading.Lock()
 
 
 def _cache_path(src: Path) -> Path:
@@ -47,9 +51,9 @@ def _cache_path(src: Path) -> Path:
 
 
 def _compile(src: Path, out: Path) -> None:
-    # per-process tmp name: concurrent first-time builders must not
-    # interleave writes before the atomic rename
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    # per-process and per-thread tmp name: concurrent first-time
+    # builders must not interleave writes before the atomic rename
+    tmp = out.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}.so")
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
         "-funroll-loops", "-pthread", str(src), "-o", str(tmp),
@@ -65,18 +69,21 @@ def _load(name: str, configure: Callable[[ctypes.CDLL], None]):
     process; returns None forever after the first failure."""
     if name in _LIBS:
         return _LIBS[name]
-    try:
-        src = _DIR / f"{name}.cpp"
-        path = _cache_path(src)
-        if not path.exists():
-            _compile(src, path)
-        lib = ctypes.CDLL(str(path))
-        configure(lib)
-        _LIBS[name] = lib
-    except Exception as exc:
-        _LIBS[name] = None
-        _ERRORS[name] = f"{type(exc).__name__}: {exc}"
-    return _LIBS[name]
+    with _LOAD_LOCK:
+        if name in _LIBS:  # another thread loaded it meanwhile
+            return _LIBS[name]
+        try:
+            src = _DIR / f"{name}.cpp"
+            path = _cache_path(src)
+            if not path.exists():
+                _compile(src, path)
+            lib = ctypes.CDLL(str(path))
+            configure(lib)
+            _LIBS[name] = lib
+        except Exception as exc:
+            _LIBS[name] = None
+            _ERRORS[name] = f"{type(exc).__name__}: {exc}"
+        return _LIBS[name]
 
 
 def load_error(name: str) -> Optional[str]:

@@ -28,6 +28,24 @@ from cleisthenes_tpu_torch.transport.base import (
     NullAuthenticator,
 )
 from cleisthenes_tpu_torch.transport.channel import ChannelNetwork, ChannelConnection
+from cleisthenes_tpu_torch.transport.health import (
+    Backoff,
+    PeerHealthTracker,
+    backoff_rng,
+)
+from cleisthenes_tpu_torch.transport.obs_http import (
+    ObsServer,
+    ObsTarget,
+    render_prometheus,
+)
+from cleisthenes_tpu_torch.transport.pb_adapter import (
+    decode_pb_message,
+    encode_pb_message,
+)
+
+# The gRPC transport (transport.grpc_net) and the validator host
+# (transport.host) import ``grpc`` and the protocol plane: import them
+# from their modules.
 
 __all__ = [
     "Message",
@@ -49,4 +67,12 @@ __all__ = [
     "NullAuthenticator",
     "ChannelNetwork",
     "ChannelConnection",
+    "Backoff",
+    "PeerHealthTracker",
+    "backoff_rng",
+    "ObsServer",
+    "ObsTarget",
+    "render_prometheus",
+    "encode_pb_message",
+    "decode_pb_message",
 ]

@@ -7,6 +7,10 @@ from cleisthenes_tpu_torch.utils.metrics import (
     Histogram,
     Metrics,
 )
+from cleisthenes_tpu_torch.utils.timeseries import (
+    TimeSeriesSampler,
+    flatten_snapshot,
+)
 from cleisthenes_tpu_torch.utils.trace import TraceRecorder, maybe_recorder
 
 __all__ = [
@@ -14,7 +18,9 @@ __all__ = [
     "Histogram",
     "EpochTrace",
     "Metrics",
+    "TimeSeriesSampler",
     "TraceRecorder",
+    "flatten_snapshot",
     "guarded_by",
     "maybe_recorder",
     "proposal_rng",

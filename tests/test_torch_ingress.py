@@ -2,7 +2,6 @@
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
 # Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_grpc_roundtrip_on_real_validator_host (transport/host.py, A-7)
 #   test_ingress_plane_identical_across_hash_seeds (tools/loadgen.py, A-8)
 """Client ingress plane (transport/ingress.py), end to end.
 
@@ -23,10 +22,15 @@ seeds (cross-PYTHONHASHSEED subprocess replay).
 
 from __future__ import annotations
 
+import threading
+
 from cleisthenes_tpu_torch.config import Config
 from cleisthenes_tpu_torch.core.ledger import encode_batch_body
 from cleisthenes_tpu_torch.core.mempool import MAX_TX_BYTES
 from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
+from cleisthenes_tpu_torch.protocol.honeybadger import setup_keys
+from cleisthenes_tpu_torch.transport.host import ValidatorHost
+from cleisthenes_tpu_torch.transport.ingress import IngressGrpcClient
 from cleisthenes_tpu_torch.transport.message import IngressStatus
 
 
@@ -156,3 +160,68 @@ def test_subscribe_replays_then_follows_live_tail():
     )
     assert gate.next_batch(feed, timeout=0.05) is None
     feed.close()
+
+
+def test_grpc_roundtrip_on_real_validator_host():
+    """The full socket path: 4 ValidatorHosts with ingress mounted,
+    submits pipelined over real gRPC streams (acks in order), commits
+    driven by the admission kick, and a gRPC subscriber streaming the
+    settled batch."""
+    n = 4
+    cfg = Config(crypto_backend="cpu",
+        n=n,
+        batch_size=8,
+        ingress_port=0,  # ephemeral: each host reports its bound port
+        mempool_capacity=64,
+    )
+    ids = [f"node{i}" for i in range(n)]
+    keys = setup_keys(cfg, ids, seed=55)
+    hosts = {i: ValidatorHost(cfg, i, ids, keys[i]) for i in ids}
+    clients = []
+    try:
+        addrs = {i: h.listen() for i, h in hosts.items()}
+        threads = [
+            threading.Thread(target=h.connect, args=(addrs,))
+            for h in hosts.values()
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=15)
+        txs = [b"ingress-tx-%02d" % i for i in range(2 * n)]
+        # every node admits its share over its own ingress socket, so
+        # every node proposes (the on_admitted kick starts its epoch)
+        for rank, nid in enumerate(ids):
+            c = IngressGrpcClient(
+                f"127.0.0.1:{hosts[nid].ingress_server.port}"
+            )
+            clients.append(c)
+            batch = [
+                (f"cli-{i % 3}", i, 1 + i % 5, tx)
+                for i, tx in enumerate(txs)
+                if i % n == rank
+            ]
+            acks = c.submit_many(batch)
+            assert len(acks) == len(batch)
+            assert all(
+                IngressStatus(a.status) is IngressStatus.OK for a in acks
+            )
+            # acks come back in submit order (pipelined one stream)
+            assert [a.nonce for a in acks] == [s[1] for s in batch]
+        first = {i: h.wait_commit(timeout=60) for i, h in hosts.items()}
+        bodies = {
+            encode_batch_body(e, b) for e, b in first.values()
+        }
+        assert len(bodies) == 1
+        committed = first[ids[0]][1].tx_list()
+        assert set(committed) <= set(txs) and len(committed) > 0
+        # subscription over the same socket streams that batch
+        sub = clients[0].subscribe(0, timeout=30)
+        streamed = next(sub)
+        assert streamed.epoch == first[ids[0]][0]
+        assert streamed.body == bodies.pop()
+    finally:
+        for c in clients:
+            c.close()
+        for h in hosts.values():
+            h.stop()

@@ -1,8 +1,6 @@
 # The reference's tests/test_pipeline_depth.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_depth1_vs_depth4_identical_ledgers_grpc
 """K-deep pipelined epoch frontiers (Config.pipeline_depth).
 
 Covers the acceptance matrix:
@@ -432,3 +430,62 @@ def test_reconfig_boundary_under_depth4():
         "node100" in b.contributions and b.contributions["node100"]
         for b in jn.committed_batches
     ), "joiner never contributed a committed proposal"
+
+
+@pytest.mark.faults
+def test_depth1_vs_depth4_identical_ledgers_grpc():
+    """Same roster, same submissions, real sockets: the depth-1 and
+    depth-4 arms settle byte-identical multi-epoch ledgers."""
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    def run(depth: int) -> list:
+        n = 4
+        cfg = Config(crypto_backend="cpu",
+            n=n,
+            batch_size=8,
+            seed=77,
+            pipeline_depth=depth,
+            reconfig_lead=max(8, depth + 4 + 1),
+        )
+        ids = [f"node{i}" for i in range(n)]
+        keys = setup_keys(cfg, ids, seed=55)
+        hosts = {i: ValidatorHost(cfg, i, ids, keys[i]) for i in ids}
+        try:
+            addrs = {i: h.listen() for i, h in hosts.items()}
+            threads = [
+                threading.Thread(target=h.connect, args=(addrs,))
+                for h in hosts.values()
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=15)
+            # two epochs' worth of work (b//n = 2 per node per epoch)
+            for i in range(16):
+                hosts[ids[i % n]].submit(b"grpc-kd-%02d" % i)
+            for h in hosts.values():
+                h.propose()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                if all(
+                    len(h.committed_batches()) >= 2
+                    for h in hosts.values()
+                ):
+                    break
+                time.sleep(0.25)
+            ledgers = {
+                i: [
+                    encode_batch_body(e, b)
+                    for e, b in enumerate(h.committed_batches()[:2])
+                ]
+                for i, h in hosts.items()
+            }
+            assert all(len(l) == 2 for l in ledgers.values())
+            first = ledgers[ids[0]]
+            assert all(l == first for l in ledgers.values())
+            return first
+        finally:
+            for h in hosts.values():
+                h.stop()
+
+    assert run(1) == run(4)

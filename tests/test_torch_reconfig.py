@@ -3,10 +3,6 @@
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
 # Left out, each for a module of a later slice (ROADMAP.md queue A):
 #   test_fuzz_reconfig_schedules_hold_invariants
-#   test_grpc_join_and_wal_replay_across_reconfig
-#   test_grpc_retired_peer_stops_redial_storm
-#   test_health_tracker_retirement
-#   test_stale_mac_frames_rejected_after_rotation_grpc
 """Dynamic membership: RECONFIG transactions, in-band key
 resharing, joiner bootstrap via CATCHUP, retirement teardown, and WAL
 replay across the roster switch — on both transports.
@@ -573,3 +569,311 @@ def test_routing_arms_stay_byte_equivalent_across_reconfig():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.faults
+def test_stale_mac_frames_rejected_after_rotation_grpc():
+    """MAC rotation satellite (gRPC transport): the rekey-only
+    ceremony runs over real sockets; post-activation, a host signing
+    under the stale v0 pair key is rejected at the receiving server."""
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    n = 4
+    cfg = Config(crypto_backend="cpu",
+        n=n,
+        batch_size=8,
+        seed=7,
+        dial_timeout_s=0.25,
+        dial_retry_base_s=0.05,
+        dial_retry_max_s=1.0,
+        decrypt_lag_max=2,
+        reconfig_lead=4,
+        pipeline_depth=1,
+    )
+    ids = [f"node{i}" for i in range(n)]
+    keys = setup_keys(cfg, ids, seed=77)
+    old_key = keys["node1"].mac_keys["node0"]
+    hosts = {i: ValidatorHost(cfg, i, ids, keys[i]) for i in ids}
+    try:
+        addrs = {i: h.listen() for i, h in hosts.items()}
+        threads = [
+            threading.Thread(target=h.connect, args=(addrs,))
+            for h in hosts.values()
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=15)
+        for i in range(8):
+            hosts[ids[i % n]].submit(b"pre-%02d" % i)
+        for h in hosts.values():
+            h.propose()
+        for h in hosts.values():
+            h.wait_commit(timeout=60)
+        # rekey-only RECONFIG: same members, fresh key material
+        members = [(m, *a.rsplit(":", 1)) for m, a in addrs.items()]
+        members = [(m, ip, int(p)) for m, ip, p in members]
+        hosts[ids[0]].submit(rcfg.encode_reconfig_tx(1, members, {}))
+        for h in hosts.values():
+            h.propose()
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            if all(h.node.roster_version == 1 for h in hosts.values()):
+                break
+            time.sleep(0.25)
+        assert all(h.node.roster_version == 1 for h in hosts.values())
+        # drive settlement past the boundary so teardown pins the
+        # fresh keys and drops the verify-either alternates
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            if all(
+                "node0" not in h._auth._alt_keys
+                and h._auth._peer_keys.get("node0", old_key) != old_key
+                for h in hosts.values()
+                if h.node_id != "node0"
+            ):
+                break
+            for i in range(4):
+                hosts[ids[i % n]].submit(b"post-%02d" % i)
+            for h in hosts.values():
+                h.propose()
+            time.sleep(0.5)
+        assert hosts["node1"]._auth._peer_keys["node0"] != old_key
+        assert "node1" not in hosts["node0"]._auth._alt_keys
+        # stale sender: node1 signs to node0 under the v0 key
+        rejected0 = hosts["node0"]._transport_stats()["rejected"]
+        hosts["node1"]._auth.set_peer_key("node0", old_key)
+        hosts["node1"].submit(b"stale-probe")
+        hosts["node1"].propose()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            if hosts["node0"]._transport_stats()["rejected"] > rejected0:
+                break
+            time.sleep(0.1)
+        assert hosts["node0"]._transport_stats()["rejected"] > rejected0
+    finally:
+        for h in hosts.values():
+            h.stop()
+
+
+def test_health_tracker_retirement():
+    from cleisthenes_tpu_torch.transport.health import PeerHealthTracker
+
+    t = PeerHealthTracker(["a", "b"])
+    t.dial_failed("a")
+    assert "a" in t.snapshot()
+    t.retire("a")
+    assert t.is_retired("a")
+    assert "a" not in t.snapshot()
+    # racing dial events for a retired peer must not resurrect it
+    t.dial_started("a")
+    t.dial_failed("a")
+    t.dial_scheduled("a", 0.5)
+    t.connected("a")
+    t.stream_lost("a")
+    assert "a" not in t.snapshot()
+    assert t.state("a") == "down"
+    # the live peer is untouched
+    t.connected("b")
+    assert t.snapshot()["b"]["state"] == "up"
+
+
+@pytest.mark.faults
+def test_grpc_retired_peer_stops_redial_storm():
+    """Satellite: a host redialing an unreachable peer backs off; the
+    moment the peer retires, the loop cancels — dial attempts stop
+    growing and the peer vanishes from transport_health."""
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    cfg = Config(crypto_backend="cpu",
+        n=4,
+        batch_size=8,
+        seed=7,
+        dial_timeout_s=0.1,
+        dial_retry_base_s=0.02,
+        dial_retry_max_s=0.1,
+    )
+    ids = [f"node{i}" for i in range(4)]
+    keys = setup_keys(cfg, ids, seed=77)
+    host = ValidatorHost(cfg, "node0", ids, keys["node0"])
+    try:
+        host.listen()
+        # a peer that will never answer: the redial loop spins up
+        host._addrs["node1"] = "127.0.0.1:1"  # reserved port: refused
+        t = threading.Thread(
+            target=host._redial_loop, args=("node1",), daemon=True
+        )
+        t.start()
+        deadline = time.monotonic() + 5
+        while time.monotonic() < deadline:
+            snap = host.health.snapshot().get("node1")
+            if snap is not None and snap["dial_attempts"] >= 2:
+                break
+            time.sleep(0.02)
+        assert snap is not None and snap["dial_attempts"] >= 2
+        # retire: the loop must cancel and the health row drop
+        host.retire_peer("node1")
+        t.join(timeout=5)
+        assert not t.is_alive(), "redial loop survived retirement"
+        assert "node1" not in host.health.snapshot()
+        assert "node1" not in host.members
+    finally:
+        host.stop()
+
+
+@pytest.mark.faults
+def test_grpc_join_and_wal_replay_across_reconfig(tmp_path):
+    """The acceptance scenario over real sockets: a joiner host dials
+    in mid-run, bootstraps via CATCHUP, and participates from its
+    activation epoch; a crash-restarted member replays the roster
+    switch from its WAL and rejoins under the NEW roster — ledgers
+    byte-identical across old, new, and restarted nodes."""
+    from cleisthenes_tpu_torch.protocol.honeybadger import NodeKeys
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    n = 4
+    cfg = Config(crypto_backend="cpu",
+        n=n,
+        batch_size=8,
+        seed=7,
+        dial_timeout_s=0.25,
+        dial_retry_base_s=0.05,
+        dial_retry_max_s=1.0,
+        decrypt_lag_max=2,
+        reconfig_lead=4,
+        # lockstep window keeps this scenario's tight reconfig_lead
+        # legal (ISSUE 15 validates lead > depth + lag); the K-deep
+        # reconfig-boundary case lives in tests/test_pipeline_depth.py
+        pipeline_depth=1,
+    )
+    ids = [f"node{i}" for i in range(n)]
+    keys = setup_keys(cfg, ids, seed=77)
+    victim = "node2"
+    wal = str(tmp_path / "node2.log")
+    hosts = {
+        i: ValidatorHost(
+            cfg, i, ids, keys[i],
+            batch_log_path=wal if i == victim else None,
+        )
+        for i in ids
+    }
+    joiner = None
+    restarted = None
+    try:
+        addrs = {i: h.listen() for i, h in hosts.items()}
+        threads = [
+            threading.Thread(target=h.connect, args=(addrs,))
+            for h in hosts.values()
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=15)
+        for i, tx in enumerate([b"pre-%02d" % i for i in range(8)]):
+            hosts[ids[i % n]].submit(tx)
+        for h in hosts.values():
+            h.propose()
+        for h in hosts.values():
+            h.wait_commit(timeout=60)
+
+        # -- the joiner host boots and the operator submits RECONFIG --
+        jid = "nodeJ"
+        enroll_secret, enroll_pub = rcfg.enrollment_keypair(seed=99)
+        jkeys = NodeKeys(
+            tpke_pub=keys[ids[0]].tpke_pub,
+            tpke_share=None,
+            coin_pub=keys[ids[0]].coin_pub,
+            coin_share=None,
+            mac_keys=rcfg.joiner_bootstrap_keys(
+                enroll_secret, 1, keys[ids[0]].coin_pub, ids, jid
+            ),
+            enroll_secret=enroll_secret,
+        )
+        import dataclasses as _dc
+
+        joiner = ValidatorHost(
+            _dc.replace(cfg, n=n, f=None),
+            jid,
+            ids,
+            jkeys,
+            joining=True,
+        )
+        jaddr = joiner.listen()
+        jt = threading.Thread(target=joiner.connect, args=(addrs,))
+        jt.start()
+        jt.join(timeout=15)
+        jip, jport = jaddr.rsplit(":", 1)
+        members = [(m, *a.rsplit(":", 1)) for m, a in addrs.items()]
+        members = [(m, ip, int(p)) for m, ip, p in members]
+        members.append((jid, jip, int(jport)))
+        tx = rcfg.encode_reconfig_tx(1, members, {jid: enroll_pub})
+        hosts[ids[0]].submit(tx)
+        for h in hosts.values():
+            h.propose()
+
+        # the ceremony + boundary drive themselves; wait for every
+        # host (joiner included) to activate v1
+        deadline = time.monotonic() + 90
+        everyone = list(hosts.values()) + [joiner]
+        while time.monotonic() < deadline:
+            if all(
+                h.node.roster_version == 1 for h in everyone
+            ):
+                break
+            time.sleep(0.25)
+        assert all(h.node.roster_version == 1 for h in everyone), {
+            h.node_id: h.node.roster_version for h in everyone
+        }
+
+        # -- post-activation traffic: the joiner participates ---------
+        for i, tx2 in enumerate([b"post-%02d" % i for i in range(8)]):
+            joiner.submit(tx2) if i % 2 else hosts[ids[0]].submit(tx2)
+        for h in everyone:
+            h.propose()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            depths = [len(h.committed_batches()) for h in everyone]
+            if min(depths) >= cfg.reconfig_lead and all(
+                h.pending_tx_count() == 0 for h in everyone
+            ):
+                break
+            time.sleep(0.25)
+
+        # -- crash the WAL-bearing member and restart under v1 --------
+        hosts[victim].stop()
+        restarted = ValidatorHost(
+            cfg,
+            victim,
+            ids,
+            keys[victim],
+            listen_addr=addrs[victim],
+            batch_log_path=wal,
+        )
+        assert restarted.node.roster_version == 1
+        assert jid in restarted.node.members
+        restarted.listen()
+        raddrs = dict(addrs)
+        raddrs[jid] = jaddr
+        restarted.connect(raddrs)
+        want = hosts[ids[0]].committed_batches()
+        deadline = time.monotonic() + 60
+        got = []
+        while time.monotonic() < deadline:
+            got = restarted.committed_batches()
+            if len(got) >= len(want):
+                break
+            time.sleep(0.25)
+        assert len(got) >= len(want), (len(got), len(want))
+        # byte-identical ledgers across old, new and restarted nodes
+        ref = [
+            encode_batch_body(e, b) for e, b in enumerate(want)
+        ]
+        for h in [hosts[ids[0]], hosts[ids[1]], joiner, restarted]:
+            batches = h.committed_batches()
+            for e, body in enumerate(ref):
+                assert encode_batch_body(e, batches[e]) == body
+    finally:
+        for h in hosts.values():
+            h.stop()
+        if joiner is not None:
+            joiner.stop()
+        if restarted is not None:
+            restarted.stop()

@@ -1,9 +1,6 @@
 # The reference's tests/test_semantic_byzantine.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_semantic_coalition_over_grpc_n4 (transport/host.py, A-7)
-#   test_semantic_coalition_over_grpc_n7 (transport/host.py, A-7)
 """Semantic Byzantine adversary tests: key-holding nodes that follow
 the rules of the wire but not the protocol (protocol.byzantine).
 
@@ -18,6 +15,8 @@ on the in-proc channel transport AND over real gRPC.
 
 Module carries the ``faults`` marker (ci.sh fault-regression stage).
 """
+
+import threading
 
 import pytest
 
@@ -165,3 +164,78 @@ def test_behavior_registry_round_trip():
         assert b.seed == 3
     with pytest.raises(ValueError, match="unknown behavior"):
         make_behavior("nonsense", seed=0)
+
+
+def _run_grpc_cluster(n, behaviors, txs=8, key_seed=55):
+    """n validators over localhost gRPC, semantic behaviors mounted via
+    the ValidatorHost seam; returns {node_id: first committed batch}
+    for the honest members."""
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.protocol.honeybadger import setup_keys
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    cfg = Config(crypto_backend="cpu", n=n, batch_size=8)
+    ids = [f"node{i}" for i in range(n)]
+    keys = setup_keys(cfg, ids, seed=key_seed)
+    hosts = {
+        i: ValidatorHost(cfg, i, ids, keys[i], behavior=behaviors.get(i))
+        for i in ids
+    }
+    try:
+        addrs = {i: h.listen() for i, h in hosts.items()}
+        threads = [
+            threading.Thread(target=h.connect, args=(addrs,))
+            for h in hosts.values()
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=15)
+        honest = [i for i in ids if i not in behaviors]
+        for i in range(txs):
+            hosts[honest[i % len(honest)]].submit(b"tx-%04d" % i)
+        for h in hosts.values():
+            h.propose()
+        first = {i: hosts[i].wait_commit(timeout=60) for i in honest}
+        # the transport counters are reachable through public metrics
+        # on this transport too (GrpcServer.stats + pool connections)
+        transport = hosts[honest[0]].node.metrics.snapshot()["transport"]
+        return first, transport
+    finally:
+        for h in hosts.values():
+            h.stop()
+
+
+@pytest.mark.parametrize("kind", SEMANTIC_KINDS)
+def test_semantic_coalition_over_grpc_n4(kind):
+    """(n=4, f=1) semantic coalitions over REAL gRPC streams: honest
+    hosts commit the identical first batch — the transport-independence
+    half of the 'both transports' contract."""
+    first, transport = _run_grpc_cluster(
+        4, {"node3": make_behavior(kind, seed=17)}
+    )
+    epochs = {e for e, _ in first.values()}
+    assert epochs == {0}
+    lists = [b.tx_list() for _, b in first.values()]
+    assert all(l == lists[0] for l in lists)
+    assert len(lists[0]) > 0
+    assert all(tx.startswith(b"tx-") for tx in lists[0])
+    assert transport["delivered"] > 0
+    assert transport["rejected"] == 0  # lies were valid frames
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kind", SEMANTIC_KINDS)
+def test_semantic_coalition_over_grpc_n7(kind):
+    """(n=7, f=2) over real gRPC — the full-budget variant, in the
+    slow tier (7 hosts x threads x sockets)."""
+    behaviors = {
+        "node5": make_behavior(kind, seed=17),
+        "node6": make_behavior(kind, seed=18),
+    }
+    first, _transport = _run_grpc_cluster(7, behaviors, txs=10)
+    epochs = {e for e, _ in first.values()}
+    assert epochs == {0}
+    lists = [b.tx_list() for _, b in first.values()]
+    assert all(l == lists[0] for l in lists)
+    assert len(lists[0]) > 0

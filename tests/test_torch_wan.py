@@ -2,9 +2,6 @@
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
 # Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_backoff_flap_keeps_capped_schedule
-#   test_backoff_flap_sequence_stays_capped
-#   test_host_backoff_persists_per_dial_lane
 #   test_wan_ledgers_identical_across_hash_seeds
 """Seeded WAN emulation plane, end to end.
 
@@ -39,6 +36,7 @@ import pytest
 
 from cleisthenes_tpu_torch.config import Config
 from cleisthenes_tpu_torch.protocol.cluster import SimulatedCluster
+from cleisthenes_tpu_torch.transport.health import Backoff
 from cleisthenes_tpu_torch.transport.wan import (
     PROFILES,
     WanEmulator,
@@ -287,7 +285,60 @@ def test_wan_3region_partition_heals_to_quiescence():
 # ---------------------------------------------------------------------------
 
 
+def test_backoff_flap_keeps_capped_schedule():
+    """The regression: a flapping link (dial lands, stream dies
+    before stability_s) must CONTINUE the capped schedule — the old
+    reset-on-every-success re-probed from base forever."""
+    b = Backoff(0.1, 3.0, rng=random.Random(1))
+    for _ in range(10):
+        b.next_delay()  # drive the schedule to the cap
+    # flap: up for 0.5s < stability_s (defaults to max_s = 3.0)
+    b.note_connected(now=100.0)
+    b.note_lost(now=100.5)
+    assert b.next_delay() >= 3.0 * 0.75, (
+        "flap reset the schedule to base"
+    )
+    # a connection that SURVIVES the stability window re-arms
+    b.note_connected(now=200.0)
+    b.note_lost(now=204.0)
+    assert b.next_delay() <= 0.1 * 1.25
 
 
+def test_backoff_flap_sequence_stays_capped():
+    """A sustained flap storm never decays below the cap, and every
+    delay honors the hard max_s bound."""
+    b = Backoff(0.05, 2.0, rng=random.Random(7))
+    now = 0.0
+    delays = []
+    for _ in range(20):
+        delays.append(b.next_delay())
+        now += delays[-1]
+        b.note_connected(now=now)
+        now += 0.2  # each success lives 0.2s << stability_s
+        b.note_lost(now=now)
+    assert max(delays) <= 2.0  # the hard bound holds throughout
+    # the tail sits at the cap (jitter floor 0.75 * max_s), instead
+    # of sawtoothing back to base on every transient success
+    assert all(d >= 2.0 * 0.75 for d in delays[8:]), delays
 
 
+def test_host_backoff_persists_per_dial_lane():
+    """ValidatorHost keeps ONE Backoff per member across connect()
+    and every _redial_loop invocation (the flap fix's other half),
+    and drops it when the peer retires."""
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    class _Stub:
+        config = Config(crypto_backend="cpu", n=4, seed=9)
+        node_id = "node000"
+        _backoffs: dict = {}
+        _backoffs_lock = threading.Lock()
+
+    stub = _Stub()
+    b1 = ValidatorHost._backoff_for(stub, "node001")
+    b1.next_delay()
+    b2 = ValidatorHost._backoff_for(stub, "node001")
+    assert b1 is b2, "redial loop got a fresh backoff (flap reset)"
+    assert ValidatorHost._backoff_for(stub, "node002") is not b1
+    # seeded jitter is per dial lane: schedules replay per peer
+    assert stub._backoffs["node001"].stability_s == b1.max_s

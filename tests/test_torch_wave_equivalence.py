@@ -1,8 +1,6 @@
 # The reference's tests/test_wave_equivalence.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_scalar_vs_wave_identical_ledgers_grpc
 """Scalar-flush vs columnar-wave-flush equivalence.
 
 The wave refactor moved batched crypto to the transport's quiescence
@@ -147,4 +145,54 @@ def test_wave_ordering_identical_across_hash_seeds():
         "wave composition diverged across PYTHONHASHSEED values:\n"
         f"  {a}\n  {b}\n-> hash-order iteration is leaking into the "
         "hub's drain/dispatch path (see staticcheck DET002/DET003)"
+    )
+
+
+def _grpc_epoch0_bodies(wave_flush: bool) -> list:
+    """Every node's encoded epoch-0 batch body from one 4-node run
+    over real localhost gRPC under the given flush discipline."""
+    from cleisthenes_tpu_torch.protocol.honeybadger import setup_keys
+    from cleisthenes_tpu_torch.transport.host import ValidatorHost
+
+    n = 4
+    cfg = Config(crypto_backend="cpu", n=n, batch_size=8, seed=77, hub_wave_flush=wave_flush)
+    ids = [f"node{i}" for i in range(n)]
+    keys = setup_keys(cfg, ids, seed=55)
+    hosts = {i: ValidatorHost(cfg, i, ids, keys[i]) for i in ids}
+    try:
+        addrs = {i: h.listen() for i, h in hosts.items()}
+        threads = [
+            threading.Thread(target=h.connect, args=(addrs,))
+            for h in hosts.values()
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=15)
+        for i in range(8):
+            hosts[ids[i % n]].submit(b"grpc-wave-%02d" % i)
+        for h in hosts.values():
+            h.propose()
+        first = {i: h.wait_commit(timeout=60) for i, h in hosts.items()}
+        assert {e for e, _ in first.values()} == {0}
+        return [encode_batch_body(0, b) for _, b in first.values()]
+    finally:
+        for h in hosts.values():
+            h.stop()
+
+
+def test_scalar_vs_wave_identical_ledgers_grpc():
+    """Same roster, same submissions, real sockets: the wave and
+    scalar disciplines must commit byte-identical epoch-0 batches
+    (deterministic proposal sampling + full proposal inclusion on a
+    quiet loopback make the committed bytes a pure function of the
+    inputs, not of the flush discipline)."""
+    wave = _grpc_epoch0_bodies(wave_flush=True)
+    scalar = _grpc_epoch0_bodies(wave_flush=False)
+    # within-run agreement is byte-exact on both arms...
+    assert all(b == wave[0] for b in wave)
+    assert all(b == scalar[0] for b in scalar)
+    # ...and across the discipline boundary too
+    assert wave[0] == scalar[0], (
+        "wave vs scalar gRPC runs committed different epoch-0 bytes"
     )
