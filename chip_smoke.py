@@ -93,7 +93,31 @@ before printing any result.  It prints, in order:
    through ``combine_shares_batch(..., backend='cuda')`` — the unfused
    decrypt branch, one generic-pow dispatch — must give the values the
    epoch's fused dispatch left in the combine memo;
-5. after the three lockstep paths, the asynchronous plane's path
+5. after the three lockstep paths, the device mesh (``mesh_phase``,
+   parallel/mesh.py): at the ops level, on ``CryptoMesh((2, 4))`` of
+   eight handles of the card and on the default ``CryptoMesh((1, 1))``,
+   RS encode, shared and mixed-pattern decode, the forest, the N^2
+   branch verify (a leaf, a sibling and an index tampered a warp), the
+   pow (5,504 rows), the dual pow (22,016) and the grouped pow (98,304
+   exponents over 257 bases, flattened under a mesh) at the N=128
+   epoch's shapes, each byte-equal to the unsharded call and one launch
+   a tile; a (3, 2) mesh on six handles with a ragged batch of 5; then
+   mesh-n128: the N=128 path with ``Config(mesh_shape=...)`` on each of
+   both meshes, a warm-up and one measured epoch of the same
+   transactions, whose committed batches must equal the N=128 path's own
+   first two epochs byte for byte, launching K1, K2, K5-K8 (a whole
+   number of launches a tile) and neither K3, nor K9, nor ``OFF_PATH``;
+   then ``flagship.dryrun_multichip`` on eight handles and on one device
+   (its tile shapes, its roots and shards equal to the unsharded
+   flagship step, its N=64 epoch on the sharded plane); then the fuzz
+   driver (``fuzz_phase``, tools/fuzz.py) on the card's defaults over the
+   seeds from 0 of the 0:20 smoke band that fit in 60 s, each schedule
+   holding every invariant and committing the ledgers of the same
+   schedule on 'cpu', the planted tx injector caught as
+   ``no_foreign_tx``, and ``tools/loadgen.py`` at its smoke size with
+   its own audits (zero lost acks, frontiers met, agreement, equal
+   settled content at depths 1 and 4);
+6. then the asynchronous plane's path
    (``async_phase``): ``SimulatedCluster(config=Config(n=64,
    batch_size=10000, seed=99), key_seed=77)`` with its defaults (the
    'cuda' backend), N HoneyBadger state machines over the in-process
@@ -113,7 +137,7 @@ before printing any result.  It prints, in order:
    host Python; then holds the six kernels to their plain versions and
    times them at the path's shapes (K1 and K5 at the B=1 propose call,
    the others at their median wave) with their bounds;
-6. then the same deployment at its full fault budget
+7. then the same deployment at its full fault budget
    (``byzantine_phase``): the first f=21 nodes lie (``BYZ_KINDS`` in
    turn: four each of ShareForger, BadDealer and Equivocator, three each
    of SplitVoter, SelectiveMute and EpochSprayer) under a wire adversary
@@ -131,7 +155,7 @@ before printing any result.  It prints, in order:
    and reject counts.  It prints the run's wall seconds, epochs, tx/s,
    the lowest honest node's frontiers, the flush split, rewrites by
    kind, rejects and launches, and K6 and K8 timed at their median call;
-7. then the system as it is deployed (``grpc_phase``): BASELINE.json
+8. then the system as it is deployed (``grpc_phase``): BASELINE.json
    configs[1] (N=16, f=5, 4,096-transaction batches) as 16
    ``ValidatorHost``s, ``node00``-``node15``, each with its own
    ``CryptoHub``, dispatcher thread, gRPC server and 15 dialed streams,
@@ -158,7 +182,7 @@ before printing any result.  It prints, in order:
    ``cleisthenes_tpu_torch.demo.main(["--n", "4", "--txs", "64",
    "--batch-size", "16", "--dkg"])`` on its defaults (``demo_phase``),
    must return 0 with K7 launched by its DKG;
-8. after that, the DKG path (ops/dkg.py) and the share
+9. after that, the DKG path (ops/dkg.py) and the share
    phase, each with the launch counts set to zero just before and read
    just after: ``run_dkg(n=32, threshold=11)`` on the card with all four
    fault knobs on distinct dealers and receivers, and
@@ -179,9 +203,11 @@ before printing any result.  It prints, in order:
    ``verify_dec_shares`` / ``verify_shares_batch`` (K8) with one tampered
    share, against the 'cpu' arm's shares, verdicts, plaintext and coin
    bits;
-9. the seconds the run took after the build, the ``{"kernels": [...]}``
+10. the seconds the run took after the build, the ``{"kernels": [...]}``
    JSON line (K1-K12, each with its launches per epoch on the async
-   path and on the gRPC path (``launches_grpc_n16``) and, for those six,
+   path and on the gRPC path (``launches_grpc_n16``), in mesh-n128's
+   measured epoch on each mesh (``launches_mesh_n128``) and in the fuzz
+   phase (``launches_fuzz``) and, for those six,
    its ``async_n64`` record and, for the gRPC path's, its ``grpc_n16``
    record, its launches and
    rejects on the Byzantine path (``launches_async_n64_byz``,
@@ -3223,6 +3249,342 @@ def demo_phase(torch) -> dict:
     return launches
 
 
+# The device mesh (parallel/mesh.py): the N=128 epoch's crypto plane cut
+# into tiles, one launch a tile, on (2, 4) = eight handles of the one card
+# and on the default (1, 1).  Under a mesh the codec skips the fused K3
+# (delivery in three calls) and the engine the comb (grouped calls
+# flattened to K7), as the reference routes them (rs_xla.py:177,
+# modmath.py:930-933)
+MESH_SHAPES = ((2, 4), (1, 1))
+MESH_SITES = ("rs_encode", "rs_decode", "merkle_forest", "merkle_verify", "pow",
+              "dual_pow")
+MESH_ABSENT = ("decode_recheck", "pow_grouped")
+MESH_EPOCHS = 2  # a warm-up and one measured epoch
+
+
+def mesh_handles(dev, shape):
+    """The mesh's devices: v*l handles of ``dev`` for a mesh wider than
+    one device (one card carrying several), else the defaults (None)."""
+    v, l = shape
+    return [dev] * (v * l) if v * l > 1 else None
+
+
+def mesh_op_record(torch, dev, name, want_launches, run, plain, equal):
+    """One sharded call held to its unsharded twin on the same inputs:
+    the sharded call alone between counts set to 0 and read after a
+    synchronise, then the unsharded one; every site of the call must
+    have launched ``want_launches`` times."""
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    got = run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()["sites"]
+    t0 = time.perf_counter()
+    ref = plain()
+    plain_s = time.perf_counter() - t0
+    rec = {"equal": bool(equal(got, ref)), "launches": launches, "call_s": secs,
+           "unsharded_s": plain_s}
+    wrong = {k_: v_ for k_, v_ in launches.items() if v_ != want_launches}
+    if dev.type == "cuda" and (not launches or wrong):
+        rec["equal"] = False
+    print(f"mesh_op {name}: equal={rec['equal']} launches={json.dumps(launches, sort_keys=True)} "
+          f"want_each={want_launches} call_s={secs} unsharded_s={plain_s}", flush=True)
+    return rec
+
+
+def mesh_ops_phase(torch, dev, rng, rnd, n: int = N, f: int = F, batch: int = BATCH) -> dict:
+    """The sharded crypto plane at one roster's epoch shapes (N=128: B=128
+    proposals, k=44, the 10k-tx payload's L; the N^2 branches with tampered
+    ones; the decrypt-combine pow's 5,504 rows, the dual pow's 22,016 and
+    the comb's 98,304 exponents over 257 bases) on each of ``MESH_SHAPES``,
+    every call byte-equal to the unsharded call and making one launch a
+    tile; then a (3, 2) mesh on six handles with a ragged batch of 5.
+    Returns {"<op>@<v>x<l>": record}."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.ops import sha256_cuda as sh
+    from cleisthenes_tpu_torch.ops.merkle import CudaMerkle
+    from cleisthenes_tpu_torch.ops.modmath import P, ModEngine
+    from cleisthenes_tpu_torch.ops.payload import split_payload
+    from cleisthenes_tpu_torch.ops.rs_cuda import CudaErasureCoder
+    from cleisthenes_tpu_torch.parallel.mesh import CryptoMesh
+
+    k = n - 2 * f
+    L = split_payload(bytes(payload_len(n, batch)), k).shape[1]
+    data = rng.integers(0, 256, (n, k, L), dtype=np.uint8)
+    plain_rs = CudaErasureCoder(n, k, device=dev)
+    plain_mk = CudaMerkle(device=dev)
+    plain_mx = ModEngine("cuda", device=dev)
+    full = plain_rs.encode_batch(data)
+    shared = np.tile(np.array(sorted(rng.choice(n, k, replace=False))), (n, 1))
+    mixed = np.stack([np.sort(rng.choice(n, k, replace=False)) for _ in range(n)])
+    sh_shared = np.stack([full[i, shared[i]] for i in range(n)])
+    sh_mixed = np.stack([full[i, mixed[i]] for i in range(n)])
+    forest = sh.build_forest(torch.from_numpy(full).to(dev)).cpu().numpy()
+    br, idx = tree_branches(np, forest, n)
+    leaves = full.reshape(n * n, L).copy()
+    expect = tamper_per_warp(np, leaves, br, idx)
+    roots = np.repeat(forest[:, -1], n, axis=0)
+    pb, pe, _u2, _e2 = dual_inputs(rnd, P, 5504)
+    u1, e1, u2, e2 = dual_inputs(rnd, P, 22016)
+    cb, ce, crow = comb_inputs(rnd, P, *MODEXP_SHAPES["n128"][:3])
+    groups = [(cb[r], []) for r in range(len(cb))]
+    for r, e in zip(crow, ce):
+        groups[r][1].append(e)
+
+    def same_trees(a, b):
+        return all(x.root == y.root and all(np.array_equal(p_, q_) for p_, q_ in
+                                            zip(x.levels, y.levels)) for x, y in zip(a, b))
+
+    out = {}
+    for shape in MESH_SHAPES:
+        mesh = CryptoMesh(shape, devices=mesh_handles(dev, shape), device=dev)
+        tiles = mesh.n_devices
+        tag = f"{shape[0]}x{shape[1]}"
+        print(f"mesh_ops: mesh {shape} on {[str(d_) for d_ in mesh.flat_devices]}", flush=True)
+        rs = CudaErasureCoder(n, k, device=dev, mesh=mesh)
+        mk = CudaMerkle(device=dev, mesh=mesh)
+        mx = ModEngine("cuda", device=dev, mesh=mesh)
+        eq = np.array_equal
+        cases = {
+            "encode_batch": (lambda: rs.encode_batch(data), lambda: plain_rs.encode_batch(data), eq),
+            "decode_batch_shared": (lambda: rs.decode_batch(shared, sh_shared),
+                                    lambda: plain_rs.decode_batch(shared, sh_shared), eq),
+            "decode_batch_mixed": (lambda: rs.decode_batch(mixed, sh_mixed),
+                                   lambda: plain_rs.decode_batch(mixed, sh_mixed), eq),
+            "build_batch": (lambda: mk.build_batch(full), lambda: plain_mk.build_batch(full),
+                            same_trees),
+            "verify_batch": (lambda: mk.verify_batch(roots, leaves, br, idx),
+                             lambda: plain_mk.verify_batch(roots, leaves, br, idx),
+                             lambda a, b: eq(a, b) and eq(a, expect) and not a.all()),
+            "pow_batch": (lambda: mx.pow_batch(pb, pe), lambda: plain_mx.pow_batch(pb, pe),
+                          lambda a, b: a == b),
+            "dual_pow_batch": (lambda: mx.dual_pow_batch(u1, e1, u2, e2),
+                               lambda: plain_mx.dual_pow_batch(u1, e1, u2, e2),
+                               lambda a, b: a == b),
+            "pow_batch_grouped": (lambda: mx.pow_batch_grouped(groups),
+                                  lambda: plain_mx.pow_batch_grouped(groups),
+                                  lambda a, b: a == b),
+        }
+        for name, (run, plain, equal) in cases.items():
+            out[f"{name}@{tag}"] = mesh_op_record(torch, dev, f"{name}@{tag}", tiles, run, plain,
+                                                  equal)
+        if rs.decode_recheck_batch(shared, sh_shared) is not None:
+            raise AssertionError("the fused decode-recheck ran under a mesh")
+    # a mesh of six: a ragged batch of 5 pads to 6 (the reference's
+    # TestNonPow2Mesh)
+    mesh6 = CryptoMesh((3, 2), devices=[dev] * 6)
+    mk6 = CudaMerkle(device=dev, mesh=mesh6)
+    if mk6._bucket(5) != 6:
+        raise AssertionError(f"(3, 2) mesh pads 5 rows to {mk6._bucket(5)}")
+    rs6 = CudaErasureCoder(n, k, device=dev, mesh=mesh6)
+    five = data[:5]
+    out["encode_batch@3x2_B5"] = mesh_op_record(
+        torch, dev, "encode_batch@3x2_B5", 6, lambda: rs6.encode_batch(five),
+        lambda: plain_rs.encode_batch(five), np.array_equal)
+    out["build_batch@3x2_B5"] = mesh_op_record(
+        torch, dev, "build_batch@3x2_B5", 6, lambda: mk6.build_batch(full[:5]),
+        lambda: plain_mk.build_batch(full[:5]), same_trees)
+    return out
+
+
+def ledger_bodies(batches) -> list:
+    """The committed batches' ledger-body bytes, one an epoch."""
+    from cleisthenes_tpu_torch.core.ledger import encode_batch_body
+
+    return [encode_batch_body(e, b) for e, b in enumerate(batches)]
+
+
+def mesh_path(torch, dev, shape, ref_bodies, n: int = N, batch: int = BATCH,
+              epochs: int = MESH_EPOCHS, **overrides) -> dict:
+    """The n128-lockstep path with ``Config(mesh_shape=shape)`` on the
+    port's defaults (a CPU rehearsal passes device='cpu'), on eight
+    handles of ``dev`` for (2, 4): a warm-up epoch, then one measured
+    epoch between launch counts set to 0 and read.  Gates: the committed
+    batches' ledger bytes equal ``ref_bodies`` (n128-lockstep's own first
+    epochs, the same txs and key seed), ``MESH_SITES`` launch, a whole
+    number of launches a tile, and nothing of ``MESH_ABSENT`` or
+    ``OFF_PATH``.  Returns the measured epoch's stats and launches."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.config import Config
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.protocol.spmd import LockstepCluster
+
+    t0 = time.perf_counter()
+    cfg = Config(n=n, batch_size=batch, mesh_shape=shape, **overrides)
+    cluster = LockstepCluster(config=cfg, key_seed=KEY_SEED,
+                              mesh_devices=mesh_handles(dev, shape))
+    mesh = cluster.crypto.mesh
+    tag = f"{shape[0]}x{shape[1]}"
+    print(f"mesh_path {tag}: LockstepCluster(config=Config(n={n}, batch_size={batch}, "
+          f"mesh_shape={shape}), key_seed={KEY_SEED}) backend={cfg.crypto_backend} "
+          f"device={cfg.device} mesh_devices={[str(d_) for d_ in mesh.flat_devices]} "
+          f"setup_s={time.perf_counter() - t0}", flush=True)
+    total = (batch // n) * n * epochs
+    txs = np.random.default_rng(13).integers(0, 256, (total, TX_BYTES), dtype=np.uint8)
+    for row in txs:
+        cluster.submit(row.tobytes())
+    on_card = dev.type == "cuda"
+    keys = ("propose_s", "rbc_encode_s", "rbc_verify_s", "rbc_decode_s", "bba_s",
+            "decrypt_s", "commit_s", "epoch_s", "bba_rounds")
+    stats = {}
+    for e in range(epochs):
+        if e == epochs - 1:
+            if on_card:
+                torch.cuda.synchronize()
+            COUNTS.reset()
+        stats = cluster.run_epoch()
+        print(f"mesh_path {tag} epoch {e}: " + " ".join(f"{k_}={stats[k_]}" for k_ in keys),
+              flush=True)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    bodies = ledger_bodies(cluster.committed_batches)
+    if cluster.pending_tx_count() or bodies != ref_bodies[:epochs]:
+        raise AssertionError(f"mesh {shape}: committed batches differ from n128-lockstep's "
+                             f"({len(bodies)} epochs, {cluster.pending_tx_count()} pending)")
+    for site in MESH_SITES:
+        got = launches["sites"].get(site, 0)
+        if on_card and (got <= 0 or got % mesh.n_devices):
+            raise AssertionError(f"mesh {shape}: {site} launched {got} times: {launches}")
+    for site in (*MESH_ABSENT, *OFF_PATH):
+        if launches["sites"].get(site, 0):
+            raise AssertionError(f"mesh {shape}: launched {site}: {launches}")
+    print(f"mesh_path {tag}: committed_equal_to_n128=True epochs={epochs} "
+          f"measured_epoch_s={stats['epoch_s']} launches " + json.dumps(launches, sort_keys=True),
+          flush=True)
+    return {"stats": stats, "launches": launches}
+
+
+def dryrun_phase(torch, dev, **roster) -> dict:
+    """``flagship.dryrun_multichip`` on eight handles of ``dev`` and on
+    one device (its default for one card): its own shape asserts, and
+    its roots and shards equal the unsharded flagship step at its
+    length.  ``roster`` (n, f, batch) shrinks it for a rehearsal."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch import flagship
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+
+    out = {}
+    for n_dev, devices in ((8, [dev] * 8), (1, None if dev.type == "cuda" else [dev])):
+        COUNTS.reset()
+        t0 = time.perf_counter()
+        res = flagship.dryrun_multichip(n_dev, devices=devices, **roster)
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        n = res["encoded"].shape[0]
+        f = roster.get("f", flagship.DRYRUN_F)
+        step, (data,) = flagship.flagship(n, f, res["encoded"].shape[-1], device=dev)
+        roots, encoded = step(data)
+        ok = (np.array_equal(res["roots"], roots.cpu().numpy())
+              and np.array_equal(res["encoded"], encoded.cpu().numpy()))
+        print(f"dryrun {n_dev}: mesh={res['mesh']} in_tile={res['in_tile_shape']} "
+              f"out_block={res['out_block_shape']} checksum={res['checksum']} "
+              f"equal_to_unsharded={ok} s={secs} launches={json.dumps(launches, sort_keys=True)}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"dry run on {n_dev} devices differs from the unsharded step")
+        out[n_dev] = {"s": secs, "launches": launches}
+    return out
+
+
+def mesh_phase(torch, dev, rng, rnd, ref_bodies, **overrides) -> dict:
+    """The mesh at the ops level, the n128 path on each mesh, the dry run."""
+    t0 = time.perf_counter()
+    ops = mesh_ops_phase(torch, dev, rng, rnd)
+    bad = [name for name, rec in ops.items() if not rec["equal"]]
+    if bad:
+        raise AssertionError(f"sharded calls differ from unsharded or launch wrongly: {bad}")
+    print(f"mesh_ops done in {time.perf_counter() - t0} s", flush=True)
+    paths = {shape: mesh_path(torch, dev, shape, ref_bodies, **overrides)
+             for shape in MESH_SHAPES}
+    dry = dryrun_phase(torch, dev)
+    print(f"mesh_phase done in {time.perf_counter() - t0} s", flush=True)
+    return {"ops": ops, "paths": paths, "dryrun": dry}
+
+
+# The fuzz driver (tools/fuzz.py) on the card's defaults: seeds from 0 of
+# ci.sh's 0:20 smoke band for as long as FUZZ_BUDGET_S allows, each held
+# to its "cpu" run; the planted violation caught; loadgen --smoke's gates
+FUZZ_SEEDS, FUZZ_BUDGET_S = 20, 60.0
+
+
+def planted_schedule() -> dict:
+    """tests/test_fuzz.py's planted violation: a tx injector buried
+    under components the shrinker strips."""
+    return {
+        "version": 1, "seed": 3, "n": 4, "f": 1, "batch_size": 8, "key_seed": 33,
+        "rounds": 4, "txs": 4, "bad": ["node003"],
+        "behaviors": [{"kind": "split_voter", "node": "node003", "seed": 1},
+                      {"kind": "tx_injector", "node": "node003", "seed": 9}],
+        "wire": [{"stage": "drop", "args": {"fraction": 0.1}}],
+        "timeline": [{"round": 1, "op": "partition", "node": "node003", "peer": "node000"},
+                     {"round": 2, "op": "heal", "node": "node003", "peer": "node000"}],
+        "check_liveness": True,
+    }
+
+
+def fuzz_phase(torch, budget_s: float = FUZZ_BUDGET_S, **crypto) -> dict:
+    """The fuzz driver and the load generator on the port's defaults
+    (``crypto`` = crypto/device for a CPU rehearsal).  Gates: every seed
+    run holds every invariant and commits the same ledgers as the same
+    schedule on ``crypto='cpu'``; the planted schedule is caught as
+    no_foreign_tx; ``loadgen`` at its smoke size passes its own audits
+    (zero lost acks, frontiers met, agreement, equal settled content at
+    depths 1 and 4).  Launch counts cover the card's runs."""
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.tools import fuzz, loadgen
+
+    COUNTS.reset()
+    t0 = time.perf_counter()
+    ran = []
+    for seed in range(FUZZ_SEEDS):
+        if time.perf_counter() - t0 >= budget_s:
+            break
+        schedule = fuzz.sample_schedule(seed)
+        card, host = {}, {}
+        ts = time.perf_counter()
+        v = fuzz.run_schedule(schedule, ledgers=card, **crypto)
+        secs = time.perf_counter() - ts
+        v_host = fuzz.run_schedule(schedule, crypto="cpu", ledgers=host)
+        print(f"fuzz seed {seed}: verdict={v} cpu_verdict={v_host} s={secs} "
+              f"epochs={max(len(x) for x in card.values())} ledgers_equal={card == host}",
+              flush=True)
+        if v is not None or v_host is not None or card != host or not all(card.values()):
+            raise AssertionError(f"fuzz seed {seed}: {v} / {v_host}, ledgers equal {card == host}")
+        ran.append(seed)
+    band_s = time.perf_counter() - t0
+    planted = fuzz.run_schedule(planted_schedule(), **crypto)
+    print(f"fuzz planted: {planted}", flush=True)
+    if planted is None or planted["invariant"] != "no_foreign_tx":
+        raise AssertionError(f"the planted violation was not caught: {planted}")
+    ts = time.perf_counter()
+    load = loadgen.run(
+        clients=loadgen.SMOKE_CLIENTS, txs=loadgen.SMOKE_TXS, depths=loadgen.DEFAULT_DEPTHS,
+        batch=loadgen.SMOKE_BATCH, ticks=loadgen.SMOKE_TICKS, **crypto,
+    )
+    load_s = time.perf_counter() - ts
+    launches = launch_counts()
+    on_card = crypto.get("crypto", "cuda") == "cuda" and crypto.get("device", "cuda") != "cpu"
+    for site in ("rs_encode", "merkle_forest", "merkle_verify", "dual_pow"):
+        if on_card and launches["sites"].get(site, 0) <= 0:
+            raise AssertionError(f"the fuzz phase never launched {site}: {launches}")
+    print(f"fuzz_phase: seeds_ran={len(ran)} (0..{ran[-1] if ran else None}) band_s={band_s} "
+          f"loadgen_s={load_s} loadgen_arms=" + json.dumps(
+              [{k_: a[k_] for k_ in ("depth", "settled", "txs", "evicted", "epochs", "wall_s",
+                                     "submit_to_ordered_ms", "submit_to_settled_ms")}
+               for a in load["arms"]]) + f" ledger={load['ledger_digest'][:16]} "
+          f"total_s={time.perf_counter() - t0} launches=" + json.dumps(launches, sort_keys=True),
+          flush=True)
+    return {"seeds": ran, "launches": launches}
+
+
 def native_modpow_path() -> str:
     """Path of the host's native modexp library, which BBA runs on in
     this slice; raises if it did not build or load, since the main
@@ -3368,6 +3730,7 @@ def main() -> int:
         sites=("rs_encode", "merkle_forest", "merkle_verify", "decode_recheck",
                "pow_grouped", "dual_pow"),
     )
+    n128_bodies = ledger_bodies(cluster.committed_batches)
     dec_launches = decrypt_combine_phase(torch, cluster, dev)
     del cluster
     launches_512, _ = main_path(
@@ -3381,6 +3744,8 @@ def main() -> int:
                "wide_pow", "wide_dual_pow"),
         absent=("pow_grouped", "dual_pow", "pow"),
     )
+    mesh_res = mesh_phase(torch, dev, rng, rnd, n128_bodies)
+    fuzz_res = fuzz_phase(torch)
     async_res = async_phase(torch, b1_rate)
     byz_res = byzantine_phase(torch, b1_rate)
     grpc_res = grpc_phase(torch, b1_rate)
@@ -3442,6 +3807,12 @@ def main() -> int:
         kernels[-1]["launches_async_n64_per_epoch"] = [
             kick["sites"].get(name, kick["kernels"].get(name, 0))
             for kick in async_res["launches"]]
+        kernels[-1]["launches_mesh_n128"] = {
+            f"{sh_[0]}x{sh_[1]}": mesh_res["paths"][sh_]["launches"]["sites"].get(
+                name, mesh_res["paths"][sh_]["launches"]["kernels"].get(name, 0))
+            for sh_ in MESH_SHAPES}
+        kernels[-1]["launches_fuzz"] = fuzz_res["launches"]["sites"].get(
+            name, fuzz_res["launches"]["kernels"].get(name, 0))
         kernels[-1]["launches_async_n64_byz"] = byz_res["launches"]["sites"].get(
             name, byz_res["launches"]["kernels"].get(name, 0))
         kernels[-1]["rejects_async_n64_byz"] = {

@@ -16,8 +16,9 @@ default, hand-written CUDA kernels on an NVIDIA GPU), ``'cpu'`` or
 ``'cpp'`` (in place of the reference's ``'tpu'``);
 the new ``device`` field names the torch device the ``'cuda'`` backend
 runs on (tests pass ``device='cpu'`` to run the kernels' plain PyTorch
-versions); and ``mesh_shape`` is refused until the multi-device slice
-of the port lands (ROADMAP.md, "PyTorch/CUDA port").
+versions); ``mesh_shape`` shards the ``'cuda'`` crypto plane over the
+cards (parallel/mesh.py ``CryptoMesh``: explicit tiles, one launch a
+device, where the reference lets GSPMD partition).
 """
 
 from __future__ import annotations
@@ -91,8 +92,12 @@ class Config:
         An int makes sampling deterministic, for tests/benchmarks only.
       coin_seed: shared setup seed for the threshold common-coin and
         TPKE key generation in trusted-dealer mode.
-      mesh_shape: must be None: the ('v', 'l') device mesh is a later
-        slice of the port (ROADMAP.md).
+      mesh_shape: optional ('v', 'l') device-mesh layout — (validator
+        axis, shard-length axis) — for sharding the crypto plane
+        across devices via parallel.mesh.CryptoMesh; None means
+        single-device.  Only consumed by the 'cuda' backend, whose mesh
+        takes v*l handles of the CPU on device='cpu' and the first v*l
+        cards otherwise (fewer visible cards raise).
       trace: enable the per-node flight recorder (utils/trace.py):
         quorum crossings, hub flushes, wave boundaries and WAL
         appends record into a bounded ring, mergeable into one
@@ -333,11 +338,9 @@ class Config:
                 "pre-shard-out behavior)"
             )
         if self.mesh_shape is not None:
-            raise ValueError(
-                "mesh_shape is not supported by the PyTorch port yet: the "
-                "multi-device crypto plane is a later slice (ROADMAP.md, "
-                "'PyTorch/CUDA port')"
-            )
+            from cleisthenes_tpu_torch.parallel.mesh import validate_mesh_shape
+
+            self.mesh_shape = validate_mesh_shape(self.mesh_shape)
 
     @property
     def data_shards(self) -> int:

@@ -115,7 +115,7 @@ class ErasureCoder(abc.ABC):
 
 
 def make_erasure_coder(
-    backend: str, n: int, k: int, device="cuda"
+    backend: str, n: int, k: int, device="cuda", mesh=None
 ) -> ErasureCoder:
     if n > ErasureCoder.MAX_N:
         # past the GF(2^8) shard-index ceiling (the reference's hard
@@ -130,7 +130,7 @@ def make_erasure_coder(
         if backend in ("cpu", "cpp"):
             return Cpu16ErasureCoder(n, k)
         if backend == "cuda":
-            return Cuda16ErasureCoder(n, k, device=device)
+            return Cuda16ErasureCoder(n, k, device=device, mesh=mesh)
         raise ValueError(f"unknown erasure backend {backend!r}")
     if backend == "cpu":
         from cleisthenes_tpu_torch.ops.rs_cpu import CpuErasureCoder
@@ -143,29 +143,66 @@ def make_erasure_coder(
     if backend == "cuda":
         from cleisthenes_tpu_torch.ops.rs_cuda import CudaErasureCoder
 
-        return CudaErasureCoder(n, k, device=device)
+        return CudaErasureCoder(n, k, device=device, mesh=mesh)
     raise ValueError(f"unknown erasure backend {backend!r}")
 
 
 class BatchCrypto:
     """Bundle of crypto-plane backends for one (n, f) configuration;
     ``get_backend(config)`` is the single construction point used by
-    the protocol layer."""
+    the protocol layer.
 
-    def __init__(self, backend: str, n: int, f: int, k: int, device="cuda"):
+    ``mesh_shape`` (Config.mesh_shape) shards the whole crypto plane
+    over a ('v', 'l') device mesh (parallel.mesh.CryptoMesh): RS
+    batches cut over both axes, hash/modexp batches over all devices
+    flat.  Only meaningful under the 'cuda' backend — the numpy and
+    native backends are single-host by definition.  ``mesh_devices``
+    names the mesh's devices (a list may repeat one card); by default
+    they follow ``device`` (``parallel.mesh.default_devices``).
+    """
+
+    def __init__(
+        self,
+        backend: str,
+        n: int,
+        f: int,
+        k: int,
+        device="cuda",
+        mesh_shape=None,
+        mesh_devices=None,
+    ):
         from cleisthenes_tpu_torch.ops.merkle import make_merkle
 
         self.backend = backend
         self.n = n
         self.f = f
         self.k = k
-        self.erasure = make_erasure_coder(backend, n, k, device=device)
+        # remembered so per-geometry siblings (the hub's resized-
+        # roster decode groups) inherit the same device-mesh layout
+        self.mesh_shape = None if mesh_shape is None else tuple(mesh_shape)
+        self.mesh = None
+        if mesh_shape is not None and backend == "cuda":
+            from cleisthenes_tpu_torch.parallel.mesh import make_crypto_mesh
+
+            self.mesh = make_crypto_mesh(
+                tuple(mesh_shape), mesh_devices, device=device
+            )
+        self.erasure = make_erasure_coder(
+            backend, n, k, device=device, mesh=self.mesh
+        )
         # the card the modexp engine runs on (a 'cuda' backend's)
         self.device = resolve_device(device) if backend == "cuda" else None
         # the native backend accelerates the GF plane; hashing and
         # modexp stay on their cpu reference implementations ('cuda'
         # hashes on the card too)
-        self.merkle = make_merkle(self.engine_backend, device=device)
+        self.merkle = make_merkle(
+            self.engine_backend, device=device, mesh=self.mesh
+        )
+
+    @property
+    def mesh_devices(self):
+        """The mesh's devices in ('v', 'l') order, or None."""
+        return None if self.mesh is None else self.mesh.flat_devices
 
     @property
     def engine_backend(self) -> str:
@@ -178,12 +215,15 @@ class BatchCrypto:
 
         Returns ``(data (B, k, L), roots (B, 32) uint8, dispatches)``.
         The 'cuda' backend runs the chain as one device-resident call
-        (ops/rs_cuda.py ``decode_recheck``); the host backend and the
-        GF(2^16) coders (n > 256) take the 3-step sequence."""
+        (ops/rs_cuda.py ``decode_recheck``); the host backend, the
+        GF(2^16) coders (n > 256) and a mesh-sharded codec take the
+        3-step sequence."""
         fused = getattr(self.erasure, "decode_recheck_batch", None)
         if fused is not None:
-            data, roots = fused(indices, shards)
-            return data, roots, 1
+            out = fused(indices, shards)
+            if out is not None:
+                data, roots = out
+                return data, roots, 1
         data = self.erasure.decode_batch(indices, shards)
         full = self.erasure.encode_batch(data)
         trees = self.merkle.build_batch(full)
@@ -196,24 +236,32 @@ class BatchCrypto:
         """Threshold-decryption service bound to this backend."""
         from cleisthenes_tpu_torch.ops.tpke import Tpke
 
-        return Tpke(pub, backend=self.engine_backend, device=self.device)
+        return Tpke(
+            pub, backend=self.engine_backend, device=self.device,
+            mesh=self.mesh,
+        )
 
     def coin(self, pub):
         """Common-coin service bound to this backend."""
         from cleisthenes_tpu_torch.ops.coin import CommonCoin
 
         return CommonCoin(
-            pub, backend=self.engine_backend, device=self.device
+            pub, backend=self.engine_backend, device=self.device,
+            mesh=self.mesh,
         )
 
 
-def get_backend(config) -> BatchCrypto:
+def get_backend(config, mesh_devices=None) -> BatchCrypto:
     # k comes from Config.data_shards, the single source of the
     # N - 2f formula (validated there against n >= 3f+1).
+    # ``mesh_devices``: the devices of config.mesh_shape's mesh, when
+    # not the defaults (one card carrying several handles of itself)
     return BatchCrypto(
         config.crypto_backend,
         config.n,
         config.f,
         config.data_shards,
         device=config.device,
+        mesh_shape=config.mesh_shape,
+        mesh_devices=mesh_devices,
     )

@@ -18,8 +18,8 @@ across shares and concurrent BBA instances through ops/tpke (the
 lockstep executor calls it directly).
 
 This is the PyTorch port's copy of ``cleisthenes_tpu/ops/coin.py``; its
-batched ops take the engine's ``backend`` and ``device`` (the
-reference's ``mesh``).
+batched ops take the engine's ``backend``, ``device`` and ``mesh``
+(the reference's ``mesh``).
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ def share_batch(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[DhShare]:
     """Issue MANY coin shares — across instances, rounds, and (in an
     in-proc cluster) issuers — in ONE vectorized multi-exponentiation
@@ -68,7 +69,7 @@ def share_batch(
     On the 'cuda' engine a call of 64 or more exponentiations runs the
     fixed-base comb (K9)."""
     return issue_shares_batch(
-        items, group=group, backend=backend, device=device
+        items, group=group, backend=backend, device=device, mesh=mesh
     )
 
 
@@ -76,13 +77,16 @@ class CommonCoin:
     """One coin key set shared by all BBA instances of a network."""
 
     def __init__(
-        self, pub: ThresholdPublicKey, backend: str = "cuda", device="cuda"
+        self, pub: ThresholdPublicKey, backend: str = "cuda", device="cuda",
+        mesh=None,
     ):
         self.pub = pub
         self.backend = backend
         # the card the batched share ops run on (a 'cuda' backend's; the
         # engine resolves it, and raises on a machine without a GPU)
         self.device = device
+        # the device mesh its batched share ops shard over, or None
+        self.mesh = mesh
         self.group = pub.group  # the key set carries its group
 
     def share(
@@ -119,6 +123,7 @@ class CommonCoin:
             group=self.group,
             backend=self.backend,
             device=self.device,
+            mesh=self.mesh,
         )
 
     def verify_shares(
@@ -131,6 +136,7 @@ class CommonCoin:
             b"coin|" + coin_id,
             self.backend,
             self.device,
+            self.mesh,
         )
 
     def verify_shares_batch(
@@ -158,6 +164,7 @@ class CommonCoin:
             ],
             self.backend,
             self.device,
+            self.mesh,
         )
 
     def group_params(self, coin_id: bytes):

@@ -59,8 +59,8 @@ one ``pow_batch`` for a whole roster's share checks, one for the full
 verification-key table — same as every other crypto plane in ops/.
 
 This is the PyTorch port's copy of ``cleisthenes_tpu/ops/dkg.py``.  Its
-calls take the engine's ``backend`` and ``device`` where the reference
-takes ``mesh``, and default to ``backend='cuda'``, ``device='cuda'``:
+calls take the engine's ``backend`` and ``device`` beside the
+reference's ``mesh``, and default to ``backend='cuda'``, ``device='cuda'``:
 every ``pow_batch`` then runs on the card, in the generic pow (K7) for a
 256-bit group and the wide pow (K12) for a 257-2112-bit one; on a
 machine without a GPU the defaults raise.  A seed gives the same
@@ -147,7 +147,7 @@ class DkgDealing:
             group, threshold, seed, dealer_index, b"dkg"
         )
 
-    def commitments(self, backend: str = "cuda", device="cuda") -> List[int]:
+    def commitments(self, backend: str = "cuda", device="cuda", mesh=None) -> List[int]:
         """Feldman commitments A_k = g^{a_k}.
 
         Under the GJKR flow these are the PHASE-2 opening: they must
@@ -157,7 +157,7 @@ class DkgDealing:
         exists to close.  (Standalone Feldman-VSS uses, e.g. the unit
         tests, may broadcast them immediately.)"""
         gp = self.group
-        eng = get_engine_degraded(backend, gp, device)
+        eng = get_engine_degraded(backend, gp, device, mesh)
         return eng.pow_batch([gp.g] * len(self._coeffs), self._coeffs)
 
     def share_for(self, receiver_index: int) -> int:
@@ -187,13 +187,14 @@ class PedersenDealing(DkgDealing):
         )
 
     def pedersen_commitments(
-        self, backend: str = "cuda", device="cuda"
+        self, backend: str = "cuda", device="cuda",
+        mesh=None,
     ) -> List[int]:
         """E_k = g^{a_k} h^{b_k} — the phase-one broadcast.  Perfectly
         hiding: reveals NOTHING about the a_k until phase two."""
         gp = self.group
         h = pedersen_generator(gp)
-        eng = get_engine_degraded(backend, gp, device)
+        eng = get_engine_degraded(backend, gp, device, mesh)
         t = len(self._coeffs)
         pows = eng.pow_batch(
             [gp.g] * t + [h] * t, self._coeffs + self._coeffs2
@@ -214,6 +215,7 @@ def verify_pedersen_shares(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[bool]:
     """Batched GJKR phase-one checks: ``items`` is a sequence of
     ``(pedersen_commitments, receiver_index, share, blind_share)`` and
@@ -224,7 +226,7 @@ def verify_pedersen_shares(
         return []
     gp = group
     h = pedersen_generator(gp)
-    eng = get_engine_degraded(backend, gp, device)
+    eng = get_engine_degraded(backend, gp, device, mesh)
     bases: List[int] = []
     exps: List[int] = []
     spans: List[int] = []
@@ -327,6 +329,7 @@ def validate_commitments(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
     threshold: Optional[int] = None,
 ) -> List[bool]:
     """Shape + subgroup membership for whole commitment vectors.
@@ -347,7 +350,7 @@ def validate_commitments(
     "all-member", and a t' != t vector desynchronizes the flattened
     exponent batches of verify/finalize)."""
     gp = group
-    eng = get_engine_degraded(backend, gp, device)
+    eng = get_engine_degraded(backend, gp, device, mesh)
     flat: List[int] = []
     spans: List[int] = []
     for commits in commitment_sets:
@@ -372,6 +375,7 @@ def verify_dealer_shares(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[bool]:
     """Batched step-4 checks: ``items`` is a sequence of
     ``(commitments, receiver_index, share)`` and every
@@ -383,7 +387,7 @@ def verify_dealer_shares(
     if not items:
         return []
     gp = group
-    eng = get_engine_degraded(backend, gp, device)
+    eng = get_engine_degraded(backend, gp, device, mesh)
     bases: List[int] = []
     exps: List[int] = []
     spans: List[int] = []
@@ -423,6 +427,7 @@ def finalize(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> Tuple[ThresholdPublicKey, ThresholdSecretShare]:
     """Fold the qualified dealings into this node's final key pair.
 
@@ -444,7 +449,7 @@ def finalize(
                 f"dealer {i}: {len(commits)} commitments != t={threshold}"
             )
     gp = group
-    eng = get_engine_degraded(backend, gp, device)
+    eng = get_engine_degraded(backend, gp, device, mesh)
     x_j = sum(my_shares.values()) % gp.q
     master = 1
     for commits in all_commitments.values():
@@ -483,6 +488,7 @@ def run_dkg(
     seed: Optional[int] = None,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
     corrupt_dealers: Sequence[int] = (),
     false_accusers: Sequence[int] = (),
     phase2_cheaters: Sequence[int] = (),
@@ -514,7 +520,7 @@ def run_dkg(
     }
     # -- phase one: Pedersen deal + justified complaints -> Q ---------
     ped = {
-        i: d.pedersen_commitments(backend=backend, device=device)
+        i: d.pedersen_commitments(backend=backend, device=device, mesh=mesh)
         for i, d in dealings.items()
     }
     # commitment subgroup validation first (see validate_commitments:
@@ -524,6 +530,7 @@ def run_dkg(
         group=group,
         backend=backend,
         device=device,
+        mesh=mesh,
         threshold=threshold,
     )
     bad_commits = {
@@ -549,7 +556,7 @@ def run_dkg(
             items.append((ped[i], j, s, s2))
             order.append((j, i))
     verdicts = verify_pedersen_shares(
-        items, group=group, backend=backend, device=device
+        items, group=group, backend=backend, device=device, mesh=mesh
     )
     complaints = {(j, i) for (j, i), ok in zip(order, verdicts) if not ok}
     for j in false_accusers:
@@ -567,7 +574,7 @@ def run_dkg(
         s, s2 = pairs[j][i]  # what the dealer actually sent
         reveal_items.append((ped[i], j, s, s2))
     reveal_ok = verify_pedersen_shares(
-        reveal_items, group=group, backend=backend, device=device
+        reveal_items, group=group, backend=backend, device=device, mesh=mesh
     )
     # (receiver, dealer) pairs proven consistent with the dealer's
     # phase-one Pedersen commitments — the ONLY shares phase two may
@@ -603,7 +610,7 @@ def run_dkg(
             # wrong values — the strongest cheat that still parses
             feld[i] = [group.g] * threshold
         else:
-            feld[i] = dealings[i].commitments(backend=backend, device=device)
+            feld[i] = dealings[i].commitments(backend=backend, device=device, mesh=mesh)
     # length guard BEFORE anything is flattened: a t' != t opening
     # from a real adversary would desynchronize the batched exponent
     # layouts below (see verify_dealer_shares' docstring); such a
@@ -616,6 +623,7 @@ def run_dkg(
         group=group,
         backend=backend,
         device=device,
+        mesh=mesh,
         threshold=threshold,
     )
     # consistency vs the phase-one shares every receiver holds
@@ -626,7 +634,7 @@ def run_dkg(
             p2_items.append((feld[i], j, pairs[j][i][0]))
             p2_order.append((i, j))
     p2_verdicts = verify_dealer_shares(
-        p2_items, group=group, backend=backend, device=device
+        p2_items, group=group, backend=backend, device=device, mesh=mesh
     )
     bad_openings = (
         wrong_len
@@ -637,7 +645,7 @@ def run_dkg(
         # NOT disqualified: their secrets are already in x.
         # Reconstruct each f_i from t phase-one-verified shares and
         # open it ourselves — all dealers in ONE batched dispatch.
-        eng = get_engine_degraded(backend, group, device)
+        eng = get_engine_degraded(backend, group, device, mesh)
         recon = sorted(bad_openings)
         all_coeffs: List[int] = []
         for i in recon:
@@ -674,6 +682,7 @@ def run_dkg(
             group=group,
             backend=backend,
             device=device,
+            mesh=mesh,
         )
         if pub is None:
             pub = p_j

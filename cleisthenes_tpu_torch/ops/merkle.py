@@ -197,22 +197,53 @@ class CudaMerkle(MerkleBackend):
     reference's host floors and power-of-two buckets (merkle.py:198-218)
     were tuned for a TPU relay and do not carry over.  On a CPU
     ``device`` the same calls run the plain PyTorch versions.
+
+    With a ``parallel.mesh.CryptoMesh`` the batch axis cuts over EVERY
+    mesh device flat (the reference's ``P(('v','l'))``): hashing is
+    sequential within a message but independent across the batch, so
+    each device builds or checks its block with one launch.  The batch
+    pads with zero rows to a multiple of the device count (``_bucket``).
     """
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None):
         from cleisthenes_tpu_torch.ops.backend import resolve_device
 
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     def _put(self, a: np.ndarray, dtype=np.uint8) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
             self.device
         )
 
+    def _bucket(self, b: int) -> int:
+        """The batch padded to a multiple of the mesh's device count
+        (a (3, 2) mesh pads 5 to 6); ``b`` itself without a mesh."""
+        if self.mesh is None:
+            return b
+        return b + (-b) % self.mesh.n_devices
+
+    def _flat(self, kernel, arrays, dtype=np.uint8) -> np.ndarray:
+        """``kernel`` once a device over the mesh's flat cut of
+        ``arrays`` (zero-padded to ``_bucket`` rows); the result's first
+        ``len(arrays[0])`` rows."""
+        b = arrays[0].shape[0]
+        parts = self.mesh.put_flat(
+            *(self.mesh.pad_zero_rows(a, self.mesh.n_devices) for a in arrays)
+        )
+        outs = [kernel(*(p.tensor for p in row)) for row in zip(*parts)]
+        shape = (self._bucket(b),) + tuple(outs[0].shape[1:])
+        return self.mesh.gather(parts[0], outs, shape, dtype)[:b]
+
     def build_batch(self, shards: np.ndarray) -> List[MerkleTree]:
         b, n, _ = shards.shape
         # (b, 2p-1, 32): the whole forest in one transfer
-        forest = sha256_cuda.build_forest(self._put(shards)).cpu().numpy()
+        if self.mesh is None:
+            forest = sha256_cuda.build_forest(self._put(shards)).cpu().numpy()
+        else:
+            forest = self._flat(
+                sha256_cuda.build_forest, [np.ascontiguousarray(shards, np.uint8)]
+            )
         levels = []
         off, width = 0, _next_pow2(n)
         while width >= 1:
@@ -231,6 +262,17 @@ class CudaMerkle(MerkleBackend):
         branches: np.ndarray,
         indices: np.ndarray,
     ) -> np.ndarray:
+        if self.mesh is not None:
+            return self._flat(
+                sha256_cuda.verify_branches,
+                [
+                    np.ascontiguousarray(roots, np.uint8),
+                    np.ascontiguousarray(leaves, np.uint8),
+                    np.ascontiguousarray(branches, np.uint8),
+                    np.ascontiguousarray(indices, np.int64),
+                ],
+                dtype=bool,
+            )
         ok = sha256_cuda.verify_branches(
             self._put(roots),
             self._put(leaves),
@@ -240,11 +282,11 @@ class CudaMerkle(MerkleBackend):
         return ok.cpu().numpy()
 
 
-def make_merkle(backend: str, device="cuda") -> MerkleBackend:
+def make_merkle(backend: str, device="cuda", mesh=None) -> MerkleBackend:
     if backend == "cpu":
         return CpuMerkle()
     if backend == "cuda":
-        return CudaMerkle(device=device)
+        return CudaMerkle(device=device, mesh=mesh)
     raise ValueError(f"unknown merkle backend {backend!r}")
 
 

@@ -158,6 +158,13 @@ class ModEngine:
     moduli when the toolchain builds it, else python ``pow()`` (which
     also serves arbitrarily large moduli); ``device`` is ignored.
 
+    With a ``parallel.mesh.CryptoMesh`` (``mesh``) a 'cuda' engine cuts
+    every batch over the mesh's devices flat, as the reference's
+    (modmath.py:892-911): rows zero-padded to a multiple of the device
+    count (a zero base raises nothing), one launch a device on its
+    block, the blocks concatenated in order; grouped calls flatten to
+    ``pow_batch`` (no comb under a mesh, modmath.py:930-933).
+
     ``stats`` accumulates over the engine's life: ``calls`` (batch
     calls), ``engine_s`` (wall seconds inside them) and, on 'cuda',
     ``device_s`` (the part from the inputs' upload to the end of the
@@ -174,12 +181,14 @@ class ModEngine:
         backend: str = "cuda",
         group: GroupParams = DEFAULT_GROUP,
         device="cuda",
+        mesh=None,
     ):
         if backend not in ("cpu", "cuda"):
             raise ValueError(f"unknown modexp backend {backend!r}")
         self.backend = backend
         self.group = group
         self.device = None
+        self.mesh = mesh if backend == "cuda" else None
         self.stats = {"calls": 0, "engine_s": 0.0, "device_s": 0.0}
         self._nat = None
         self._mod_arr = None
@@ -222,15 +231,31 @@ class ModEngine:
         them and return its (B, value bytes) little-endian result as
         ints."""
         t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
-        # the codecs' arrays are read-only views of bytes objects
-        args = [
-            torch.from_numpy(np.require(a, requirements="CW")).to(self.device)
-            for a in arrays
-        ]
-        out = kernel(*args, self._spec).cpu().numpy()
+        if self.mesh is None:
+            # the codecs' arrays are read-only views of bytes objects
+            args = [
+                torch.from_numpy(np.require(a, requirements="CW")).to(self.device)
+                for a in arrays
+            ]
+            out = kernel(*args, self._spec).cpu().numpy()
+        else:
+            out = self._dispatch_mesh(kernel, arrays)
         dt = time.perf_counter() - t0  # staticcheck: allow[DET001] stats-only timing
         self.stats["device_s"] += dt
         return bytes33_to_ints(out)
+
+    def _dispatch_mesh(self, kernel, arrays) -> np.ndarray:
+        """``kernel`` once a mesh device on its block of the rows,
+        zero-padded to a multiple of the device count; the (B, value
+        bytes) result without the padding."""
+        mesh = self.mesh
+        b = len(arrays[0])
+        parts = mesh.put_flat(
+            *(mesh.pad_zero_rows(a, mesh.n_devices) for a in arrays)
+        )
+        outs = [kernel(*(p.tensor for p in row), self._spec) for row in zip(*parts)]
+        rows = b + (-b) % mesh.n_devices
+        return mesh.gather(parts[0], outs, (rows, outs[0].shape[1]))[:b]
 
     def pow_batch_grouped(self, groups: Sequence[tuple]) -> List[List[int]]:
         """[[base^e for e in exps] per (base, exps) group] — the
@@ -240,8 +265,8 @@ class ModEngine:
         The 'cuda' backend runs the fixed-base comb (K9) once the call
         holds ``COMB_MIN`` exponents: one dispatch, one table per
         distinct base (mod p), every exponent naming its base's table by
-        a row index.  Smaller calls, a wide group's calls and the 'cpu'
-        backend flatten into one ``pow_batch``."""
+        a row index.  Smaller calls, a wide group's calls, a mesh's
+        calls and the 'cpu' backend flatten into one ``pow_batch``."""
         if not groups:
             return []
         flat_e = [e for _base, exps in groups for e in exps]
@@ -251,6 +276,7 @@ class ModEngine:
         if (
             self.backend == "cuda"
             and not self._wide
+            and self.mesh is None
             and len(flat_e) >= self.COMB_MIN
         ):
             p = self.group.p
@@ -381,22 +407,27 @@ def _engine(backend: str, group: GroupParams, device) -> ModEngine:
 
 
 def get_engine(
-    backend: str, group: GroupParams = DEFAULT_GROUP, device="cuda"
+    backend: str, group: GroupParams = DEFAULT_GROUP, device="cuda", mesh=None
 ) -> ModEngine:
     """Process-cached engine per (backend, group, device); ModEngine is
     stateless apart from its loaded kernel.  ``device`` is the card a
     'cuda' engine runs on ('cpu' runs the kernels' plain versions); a
-    'cpu' engine ignores it.  Raises for a group no layout of the
-    backend hosts."""
+    'cpu' engine ignores it and ``mesh``.  A 'cuda' engine bound to a
+    ``mesh`` is built per call, as the reference's (modmath.py:1148):
+    caching by mesh identity would pin every CryptoMesh (and its device
+    handles) alive for the process lifetime.  Raises for a group no
+    layout of the backend hosts."""
     if backend != "cuda":
         return _engine(backend, group, None)
     from cleisthenes_tpu_torch.ops.backend import resolve_device
 
+    if mesh is not None:
+        return ModEngine(backend, group=group, device=resolve_device(device), mesh=mesh)
     return _engine(backend, group, resolve_device(device))
 
 
 def get_engine_degraded(
-    backend: str, group: GroupParams = DEFAULT_GROUP, device="cuda"
+    backend: str, group: GroupParams = DEFAULT_GROUP, device="cuda", mesh=None
 ) -> ModEngine:
     """``get_engine`` that degrades 'cuda' to 'cpu' when no CUDA
     Montgomery layout hosts ``group`` — the one home of that decision
@@ -405,7 +436,7 @@ def get_engine_degraded(
     explicitly demanded the device."""
     if backend == "cuda" and not cuda_capable(group):
         backend = "cpu"
-    return get_engine(backend, group, device)
+    return get_engine(backend, group, device, mesh)
 
 
 def host_pow_batch(

@@ -79,9 +79,11 @@ class Cuda16ErasureCoder(ErasureCoder):
 
     MAX_N = gf.ORDER
 
-    def __init__(self, n: int, k: int, device="cuda"):
+    def __init__(self, n: int, k: int, device="cuda", mesh=None):
         super().__init__(n, k)
         self.device = resolve_device(device)
+        self.mesh = mesh  # accepted for factory symmetry, as the
+        # reference's Xla16ErasureCoder (rs16.py:77): not sharded
         self.matrix = gf.systematic_rs_matrix(n, k)
         self._enc = self._put(self.matrix)
         mark_systematic(self._enc, self.matrix)

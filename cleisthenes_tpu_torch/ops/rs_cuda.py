@@ -177,14 +177,25 @@ def decode_recheck_plain(
 
 
 class CudaErasureCoder(ErasureCoder):
-    """numpy-in/numpy-out codec whose every batch runs on ``device``."""
+    """numpy-in/numpy-out codec whose every batch runs on ``device``.
 
-    def __init__(self, n: int, k: int, device="cuda"):
+    With a ``parallel.mesh.CryptoMesh`` the batch calls cut (B, k, L)
+    over the mesh as the reference's P('v', None, 'l') (rs_xla.py:106-226):
+    B padded to 'v' (row 0 repeated), L to 'l' (zeros), one K1/K2 launch
+    a tile on its device, the result reassembled and cut back to
+    ``[:B, :, :L]``; per-instance decode matrices cut over 'v' only.
+    The contraction is over k, so tiles exchange nothing, and the fused
+    K3 does not apply (``decode_recheck_batch`` returns None)."""
+
+    def __init__(self, n: int, k: int, device="cuda", mesh=None):
         super().__init__(n, k)
         self.device = resolve_device(device)
         self.matrix = gf256.systematic_rs_matrix(n, k)
         self._enc = self._put(self.matrix)
         mark_systematic(self._enc, self.matrix)
+        self.mesh = mesh
+        # the encode matrix on each mesh device, each copy checked
+        self._enc_on = {self.device: self._enc}
         # per-instance cache (a class-level cache would pin instances)
         self._decode_matrix = functools.lru_cache(maxsize=512)(
             self._decode_matrix_impl
@@ -199,15 +210,39 @@ class CudaErasureCoder(ErasureCoder):
             self.device
         )
 
-    def _decode_mats(self, indices: np.ndarray) -> torch.Tensor:
-        """(k, k) when every instance lost the same shards (the common
-        case), else the (B, k, k) stack."""
+    def _enc_for(self, dev: torch.device) -> torch.Tensor:
+        enc = self._enc_on.get(dev)
+        if enc is None:
+            enc = self._enc_on[dev] = self._enc.to(dev)
+            mark_systematic(enc, self.matrix)
+        return enc
+
+    def _patterns(self, indices: np.ndarray) -> list:
         patterns = [self._normalize_indices(ix) for ix in indices]
         if not patterns:
             raise ValueError("empty batch")
+        return patterns
+
+    def _decode_mats(self, indices: np.ndarray) -> torch.Tensor:
+        """(k, k) when every instance lost the same shards (the common
+        case), else the (B, k, k) stack."""
+        patterns = self._patterns(indices)
         if len(set(patterns)) == 1:
             return self._decode_matrix(patterns[0])
         return torch.stack([self._decode_matrix(p) for p in patterns])
+
+    def _sharded(self, x: np.ndarray, rows: int, kernel, mats) -> np.ndarray:
+        """``kernel(mat, tile)`` over the mesh's (v, l) tiles of x
+        (B, r, L) -> (B, rows, L); ``mats(tiles)`` gives each tile's
+        matrix on the tile's device."""
+        mesh = self.mesh
+        v, l_dim = mesh.shape
+        x, b = mesh.pad_rows(x, v)
+        x, l = mesh.pad_cols(x, l_dim)
+        tiles = mesh.put_vl(x)
+        outs = [kernel(m, t.tensor) for m, t in zip(mats(tiles), tiles)]
+        full = mesh.gather(tiles, outs, (x.shape[0], rows, x.shape[-1]))
+        return full[:b, :, :l]
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         data = np.ascontiguousarray(data, dtype=np.uint8)
@@ -223,13 +258,38 @@ class CudaErasureCoder(ErasureCoder):
         data = np.ascontiguousarray(data, dtype=np.uint8)
         if data.ndim != 3 or data.shape[1] != self.k:
             raise ValueError(f"expected (B, k={self.k}, L) data, got {data.shape}")
+        if self.mesh is not None:
+            return self._sharded(
+                data, self.n, rs_encode,
+                lambda tiles: [self._enc_for(t.tensor.device) for t in tiles],
+            )
         return rs_encode(self._enc, self._put(data)).cpu().numpy()
 
     def decode_batch(self, indices: np.ndarray, shards: np.ndarray) -> np.ndarray:
-        return rs_decode(self._decode_mats(indices), self._put(shards)).cpu().numpy()
+        if self.mesh is None:
+            return rs_decode(self._decode_mats(indices), self._put(shards)).cpu().numpy()
+        shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        patterns = self._patterns(indices)
+        if len(set(patterns)) == 1:
+            shared = self._decode_matrix(patterns[0])
+            return self._sharded(
+                shards, self.k, rs_decode,
+                lambda tiles: [shared.to(t.tensor.device) for t in tiles],
+            )
+        # the per-instance decode matrices cut batch-only: their
+        # trailing axes are the contraction dims
+        per, _ = self.mesh.pad_rows(self._decode_mats(indices).cpu().numpy(), self.mesh.shape[0])
+        return self._sharded(
+            shards, self.k, rs_decode,
+            lambda tiles: [m.tensor for m in self.mesh.put_v(per)],
+        )
 
     def decode_recheck_batch(self, indices: np.ndarray, shards: np.ndarray):
-        """K3 over a batch: (data (B, k, L), roots (B, 32)) as numpy."""
+        """K3 over a batch: (data (B, k, L), roots (B, 32)) as numpy, or
+        None under a mesh (the caller's three-step path, as the
+        reference's rs_xla.py:177)."""
+        if self.mesh is not None:
+            return None
         data, roots = decode_recheck(
             self._decode_mats(indices), self._enc, self._put(shards)
         )

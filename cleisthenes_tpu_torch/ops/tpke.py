@@ -19,8 +19,8 @@ is 2 dual-exponentiations per share, batched across all N shares in
 one engine call (the "TPKE-share-verify ops/sec" BASELINE metric).
 
 This is the PyTorch port's copy of ``cleisthenes_tpu/ops/tpke.py``.
-The batched share ops take the engine's ``backend`` and ``device`` (the
-reference's ``mesh``): with ``'cuda'`` their exponentiations run on the
+The batched share ops take the engine's ``backend``, ``device`` and
+``mesh`` (the reference's ``mesh``): with ``'cuda'`` their exponentiations run on the
 card's Montgomery kernels (ops/modmath.py); single-shot ops (encrypt,
 deal, scalar issue and combine) stay on the host engine, as in the
 reference.
@@ -324,6 +324,7 @@ def issue_shares_batch(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[DhShare]:
     """Issue MANY shares in one batched exponentiation dispatch.
 
@@ -336,7 +337,7 @@ def issue_shares_batch(
     """
     if not items:
         return []
-    eng = get_engine_degraded(backend, group, device)
+    eng = get_engine_degraded(backend, group, device, mesh)
     q, g = group.q, group.g
     nbytes = group.nbytes
     # Exponentiations grouped by base — a wave shares a handful of
@@ -413,6 +414,7 @@ def combine_shares_batch(
     group: GroupParams = DEFAULT_GROUP,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[int]:
     """Lagrange-combine many independent share sets in ONE
     exponentiation dispatch (each set >= threshold verified shares;
@@ -420,7 +422,7 @@ def combine_shares_batch(
     ``combine_shares``, and shares its memo."""
     if not share_sets:
         return []
-    eng = get_engine_degraded(backend, group, device)
+    eng = get_engine_degraded(backend, group, device, mesh)
     results: List[Optional[int]] = [None] * len(share_sets)
     bases_flat: List[int] = []
     exps_flat: List[int] = []
@@ -462,6 +464,7 @@ def verify_share_groups(
     groups: Sequence[tuple],
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[List[bool]]:
     """Batched CP verification across heterogeneous groups.
 
@@ -485,7 +488,7 @@ def verify_share_groups(
         by_gp.setdefault(pub.group, []).append(gi)
     results: Dict[int, List[bool]] = {}
     for gp, idx_list in by_gp.items():
-        eng = get_engine_degraded(backend, gp, device)
+        eng = get_engine_degraded(backend, gp, device, mesh)
         a = _verify_pows_dual(gp, eng, groups, idx_list)
         results.update(_cp_verdicts(gp, groups, idx_list, a))
     return [results[gi] for gi in range(len(groups))]
@@ -571,6 +574,7 @@ def verify_and_combine_share_groups(
     combine_only_sets: Sequence[Sequence[DhShare]] = (),
     combine_only_group: Optional[GroupParams] = None,
     device="cuda",
+    mesh=None,
 ) -> Tuple[List[List[bool]], List[Optional[int]], List[int]]:
     """Verify every group's CP proofs AND Lagrange-combine each group's
     first ``threshold`` shares in ONE fused dual-exponentiation
@@ -616,7 +620,7 @@ def verify_and_combine_share_groups(
     values: Dict[int, Optional[int]] = {}
     co_values: List[int] = [0] * len(combine_only_sets)
     for gp, idx_list in by_gp.items():
-        eng = get_engine_degraded(backend, gp, device)
+        eng = get_engine_degraded(backend, gp, device, mesh)
         # verification duals first (2 per share), then combine terms
         # (threshold per set) ride the same dispatch as u2^0 = 1
         # dummy-factor duals
@@ -687,12 +691,13 @@ def verify_shares(
     context: bytes,
     backend: str = "cuda",
     device="cuda",
+    mesh=None,
 ) -> List[bool]:
     """Single-group convenience over ``verify_share_groups``."""
     if not shares:
         return []
     return verify_share_groups(
-        [(pub, base, shares, context)], backend, device
+        [(pub, base, shares, context)], backend, device, mesh
     )[0]
 
 
@@ -983,13 +988,16 @@ class Tpke:
     """Threshold decryption service for one key set."""
 
     def __init__(
-        self, pub: ThresholdPublicKey, backend: str = "cuda", device="cuda"
+        self, pub: ThresholdPublicKey, backend: str = "cuda", device="cuda",
+        mesh=None,
     ):
         self.pub = pub
         self.backend = backend
         # the card the batched share ops run on (a 'cuda' backend's; the
         # engine resolves it, and raises on a machine without a GPU)
         self.device = device
+        # the device mesh its batched share ops shard over, or None
+        self.mesh = mesh
         self.group = pub.group  # the key set carries its group
 
     # TPKE.Encrypt (docs/THRESHOLD_ENCRYPTION-EN.md:34)
@@ -1055,6 +1063,7 @@ class Tpke:
             group=self.group,
             backend=self.backend,
             device=self.device,
+            mesh=self.mesh,
         )
 
     def verify_dec_shares(
@@ -1062,7 +1071,7 @@ class Tpke:
     ) -> List[bool]:
         return verify_shares(
             self.pub, ct.c1, shares, self._context(ct), self.backend,
-            self.device,
+            self.device, self.mesh,
         )
 
     # TPKE.Decrypt (docs/THRESHOLD_ENCRYPTION-EN.md:36)

@@ -1673,6 +1673,7 @@ class HoneyBadger:
             group=group,
             backend=self.crypto.engine_backend,
             device=self.crypto.device,
+            mesh=self.crypto.mesh,
         )
         for (bba, rnd), share in zip(metas, shares):
             bba.broadcast_coin_share(rnd, share)

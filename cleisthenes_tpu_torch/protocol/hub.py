@@ -601,8 +601,9 @@ class CryptoHub:
         """The BatchCrypto whose erasure geometry matches one decode
         group: the hub's native one when (n, k) agree (every request
         before a reconfig, and all of them on fixed rosters), else a
-        cached per-geometry sibling on the same backend and device (a
-        host backend's BatchCrypto carries no device and ignores it)."""
+        cached per-geometry sibling on the same backend, device and mesh
+        (a host backend's BatchCrypto carries no device and ignores
+        them)."""
         c = self.crypto
         if n is None or (n == c.n and k == c.k):
             return c
@@ -611,6 +612,8 @@ class CryptoHub:
             hit = BatchCrypto(
                 c.backend, n, (n - k) // 2, k,
                 device="cpu" if c.device is None else c.device,
+                mesh_shape=c.mesh_shape,
+                mesh_devices=c.mesh_devices,
             )
             self._crypto_cache[(n, k)] = hit
         return hit
@@ -627,6 +630,7 @@ class CryptoHub:
             [(pub, base, shs, ctx) for pub, base, ctx, _snd, shs, _cb in items],
             backend=self.crypto.engine_backend,
             device=self.crypto.device,
+            mesh=self.crypto.mesh,
         )
         for item, ok in zip(items, verdicts):
             item[5](item[3], ok)
@@ -677,6 +681,7 @@ class CryptoHub:
                 groups,
                 backend=self.crypto.engine_backend,
                 device=self.crypto.device,
+                mesh=self.crypto.mesh,
             )
             put = self._share_memo.put
             for pairs, oks in zip(order, verdicts):
@@ -747,6 +752,7 @@ class CryptoHub:
                 group=group_objs[gid],
                 backend=self.crypto.engine_backend,
                 device=self.crypto.device,
+                mesh=self.crypto.mesh,
             )
             if tr is not None:
                 tr.complete(

@@ -109,6 +109,7 @@ class LockstepCluster:
         group=None,
         coin_block_doubling: bool = True,
         coin_block_initial: int = 1,
+        mesh_devices: Optional[Sequence] = None,
     ) -> None:
         if config is not None:
             if n != 4 and n != config.n:
@@ -130,7 +131,10 @@ class LockstepCluster:
         self._base_key_seed = key_seed
         self._group = group
         self.keys = setup_keys(cfg, self.ids, seed=key_seed, group=group)
-        self.crypto = get_backend(cfg)
+        # the devices of config.mesh_shape's mesh when not its defaults
+        # (one card carrying several handles of itself)
+        self._mesh_devices = mesh_devices
+        self.crypto = get_backend(cfg, mesh_devices)
         k0 = self.keys[self.ids[0]]
         self.tpke = self.crypto.tpke(k0.tpke_pub)
         self.coin = self.crypto.coin(k0.coin_pub)
@@ -205,7 +209,7 @@ class LockstepCluster:
             seed=self._next_key_seed() if key_seed is None else key_seed,
             group=self._group,
         )
-        self.crypto = get_backend(cfg)
+        self.crypto = get_backend(cfg, self._mesh_devices)
         k0 = self.keys[ids[0]]
         self.tpke = self.crypto.tpke(k0.tpke_pub)
         self.coin = self.crypto.coin(k0.coin_pub)
@@ -232,6 +236,7 @@ class LockstepCluster:
         group = self.tpke.group
         backend = self.crypto.engine_backend
         device = self.crypto.device
+        mesh = self.crypto.mesh
         stats: Dict[str, float] = {}
         t_all = time.perf_counter()
 
@@ -371,7 +376,7 @@ class LockstepCluster:
             if dec:
                 items = items + dec_items
             shares = issue_shares_batch(
-                items, group=group, backend=backend, device=device
+                items, group=group, backend=backend, device=device, mesh=mesh
             )
             coin_issues += n_coin
             if dec:
@@ -398,6 +403,7 @@ class LockstepCluster:
                 combine_only_sets=dec_subsets if dec else (),
                 combine_only_group=group,
                 device=device,
+                mesh=mesh,
             )
             coin_verifies += sum(len(v) for v in verdicts)
             if not all(all(v) for v in verdicts):
@@ -446,7 +452,7 @@ class LockstepCluster:
         t0 = time.perf_counter()
         if not fuse_dec:
             dec_shares = issue_shares_batch(
-                dec_items, group=group, backend=backend, device=device
+                dec_items, group=group, backend=backend, device=device, mesh=mesh
             )
             dec_subsets.extend(
                 dec_shares[i * n : i * n + tpke_pub.threshold]
@@ -461,6 +467,7 @@ class LockstepCluster:
                 group=group,
                 backend=backend,
                 device=device,
+                mesh=mesh,
             )
         decrypted: Dict[str, List[bytes]] = {}
         for i, (ct, sub) in enumerate(zip(cts, dec_subsets)):

@@ -1,12 +1,6 @@
 # The reference's tests/test_delivery_equivalence.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_fuzz_band_columnar_delivery
-#   test_fuzz_band_scalar_routing_pinned
-#   test_fuzz_band_wave_routing
-#   test_fuzz_deep_sweep_columnar_delivery
-#   test_fuzz_deep_sweep_wave_routing
 """Scalar vs columnar DELIVERY equivalence.
 
 The delivery-plane columnarization moved inbound work to wave
@@ -484,6 +478,78 @@ def test_selective_mute_coalition_wave_router():
     behaviors = {"node003": make_behavior("selective_mute", seed=44)}
     depth = _drive_coalition(behaviors, n=4, seed=31)
     assert depth >= 1
+
+
+@pytest.mark.faults
+def test_fuzz_band_columnar_delivery():
+    """20 sampled composite schedules (semantic behaviors x wire
+    faults x crash/partition timelines) with delivery_columnar=True —
+    a seed band disjoint from ci.sh's 0:20 smoke band, so the
+    delivery plane adds coverage instead of re-running it."""
+    from cleisthenes_tpu_torch.tools.fuzz import run_schedule, sample_schedule
+
+    assert Config().delivery_columnar is True  # the fuzzer's arm
+    for seed in range(300, 320):
+        v = run_schedule(sample_schedule(seed), crypto="cpu")
+        assert v is None, f"seed {seed}: {v}"
+
+
+@pytest.mark.slow
+@pytest.mark.faults
+def test_fuzz_deep_sweep_columnar_delivery():
+    """The 200-seed slow band on the columnar delivery arm."""
+    from cleisthenes_tpu_torch.tools.fuzz import run_schedule, sample_schedule
+
+    assert Config().delivery_columnar is True
+    for seed in range(320, 520):
+        v = run_schedule(sample_schedule(seed), crypto="cpu")
+        assert v is None, f"seed {seed}: {v}"
+
+
+@pytest.mark.faults
+def test_fuzz_band_wave_routing():
+    """20 sampled composite schedules against the WAVE ROUTER (the
+    fuzzer's default arm since wave_routing defaults True) — a seed
+    band disjoint from the ci.sh smoke band and the columnar-delivery
+    band, so the router seam adds coverage instead of re-running it.
+    Wire-fault schedules mount a fault_filter, which on the channel
+    transport keeps per-frame decode/verify but still routes the
+    verified wave — the seam is exercised under tampering too."""
+    from cleisthenes_tpu_torch.tools.fuzz import run_schedule, sample_schedule
+
+    assert Config().wave_routing is True  # the fuzzer's arm
+    for seed in range(520, 540):
+        v = run_schedule(sample_schedule(seed), crypto="cpu")
+        assert v is None, f"seed {seed}: {v}"
+
+
+@pytest.mark.slow
+@pytest.mark.faults
+def test_fuzz_deep_sweep_wave_routing():
+    """The 200-seed slow band on the wave-routing arm."""
+    from cleisthenes_tpu_torch.tools.fuzz import run_schedule, sample_schedule
+
+    assert Config().wave_routing is True
+    for seed in range(540, 740):
+        v = run_schedule(sample_schedule(seed), crypto="cpu")
+        assert v is None, f"seed {seed}: {v}"
+
+
+@pytest.mark.faults
+def test_fuzz_band_scalar_routing_pinned():
+    """Wave routing drains a whole wave before any handler runs, so
+    the scalar arm's finer per-message interleavings (a new message
+    overtaking older pending ones mid-wave) are a schedule space the
+    default arm can no longer reach — this band stays PINNED to
+    wave_routing=False so the adversarial scheduler keeps exploring
+    it (the schedule key round-trips through repro files)."""
+    from cleisthenes_tpu_torch.tools.fuzz import run_schedule, sample_schedule
+
+    for seed in range(740, 760):
+        s = sample_schedule(seed)
+        s["wave_routing"] = False
+        v = run_schedule(s, crypto="cpu")
+        assert v is None, f"seed {seed}: {v}"
 
 
 def _grpc_epoch0_bodies(

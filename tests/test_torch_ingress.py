@@ -1,8 +1,6 @@
 # The reference's tests/test_ingress.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_ingress_plane_identical_across_hash_seeds (tools/loadgen.py, A-8)
 """Client ingress plane (transport/ingress.py), end to end.
 
 The surface under test is the production admission/subscription path:
@@ -22,6 +20,9 @@ seeds (cross-PYTHONHASHSEED subprocess replay).
 
 from __future__ import annotations
 
+import pathlib
+import subprocess
+import sys
 import threading
 
 from cleisthenes_tpu_torch.config import Config
@@ -32,6 +33,8 @@ from cleisthenes_tpu_torch.protocol.honeybadger import setup_keys
 from cleisthenes_tpu_torch.transport.host import ValidatorHost
 from cleisthenes_tpu_torch.transport.ingress import IngressGrpcClient
 from cleisthenes_tpu_torch.transport.message import IngressStatus
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _ingress_cluster(*, n: int = 4, seed: int = 7, capacity: int = 64,
@@ -225,3 +228,43 @@ def test_grpc_roundtrip_on_real_validator_host():
             c.close()
         for h in hosts.values():
             h.stop()
+
+
+# Runs the seeded loadgen (tiny band) through the in-proc ingress
+# plane and prints the settled-ledger digest — the exact order-
+# independent digest the acceptance harness compares across arms.
+_DRIVER = r"""
+from cleisthenes_tpu_torch.tools.loadgen import build_schedule, run_arm
+sched = build_schedule(clients=300, txs=300, ticks=6, seed=9)
+arm = run_arm(sched, depth=2, n=4, batch=64, seed=9, crypto="cpu")
+print("LEDGER_DIGEST=%s settled=%d" % (arm["ledger_digest"],
+                                       arm["settled"]))
+"""
+
+
+def test_ingress_plane_identical_across_hash_seeds():
+    """Cross-PYTHONHASHSEED replay: the mempool's seeded tiebreak and
+    the plane's admission path must leak no hash()-order, so two
+    interpreters with different hash seeds settle byte-identical
+    ledgers for the same client schedule."""
+    digests = set()
+    for hash_seed in ("0", "1"):
+        proc = subprocess.run(
+            [sys.executable, "-c", _DRIVER],
+            capture_output=True,
+            text=True,
+            cwd=str(REPO),
+            env={
+                "PYTHONHASHSEED": hash_seed,
+                "JAX_PLATFORMS": "cpu",
+                "PATH": "/usr/bin:/bin",
+            },
+            timeout=600,
+        )
+        assert proc.returncode == 0, proc.stderr
+        line = [
+            ln for ln in proc.stdout.splitlines()
+            if ln.startswith("LEDGER_DIGEST=")
+        ][0]
+        digests.add(line)
+    assert len(digests) == 1, f"hash-seed-dependent ledger: {digests}"

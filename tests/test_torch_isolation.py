@@ -143,12 +143,20 @@ def test_default_simulated_cluster_raises_without_a_gpu():
         {"crypto_backend": "tpu"},
         {"device": "mps"},
         {"device": "tpu"},
-        {"mesh_shape": (2, 2)},
     ],
 )
 def test_config_refuses_what_the_port_lacks(kwargs):
     with pytest.raises(ValueError):
         Config(**kwargs)
+
+
+@pytest.mark.parametrize("shape", [(0, 2), (2,), (True, True)])
+def test_config_takes_a_mesh_shape_and_refuses_bad_ones(shape):
+    """Config.mesh_shape is the reference's knob (validate_mesh_shape):
+    a (v, l) of positive ints is taken, anything else refused."""
+    assert Config(mesh_shape=[2, 2]).mesh_shape == (2, 2)
+    with pytest.raises(ValueError):
+        Config(mesh_shape=shape)
 
 
 def test_cpu_backend_needs_no_gpu():

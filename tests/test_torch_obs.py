@@ -1,7 +1,8 @@
 # The reference's tests/test_obs.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default.
 # Left out, each for tools/perfgate.py or bench.py's trend file, which
-# drive the reference package (ROADMAP.md queue A, A-8):
+# drive the reference package: they wait for the port's benchmark
+# (ROADMAP.md queue A):
 #   test_perfgate_seed_then_pass_then_inflated_fail
 #   test_perfgate_share_stall_retries_but_real_leak_fails
 #   test_perfgate_inflated_total_is_not_share_gated

@@ -1,8 +1,6 @@
 # The reference's tests/test_wan.py, re-pointed at cleisthenes_tpu_torch:
 # the host backend ('cpu') where the reference took its default, and
 # 'cuda' on device='cpu' (the kernels' plain versions) where it says 'tpu'.
-# Left out, each for a module of a later slice (ROADMAP.md queue A):
-#   test_wan_ledgers_identical_across_hash_seeds
 """Seeded WAN emulation plane, end to end.
 
 The link model (transport/wan.py) prices every frame into a
@@ -162,6 +160,86 @@ def test_emulator_admission_replays_for_a_fixed_seed():
 
 
 
+
+
+# The acceptance bar: a fixed fuzz seed with the WAN band on (the
+# profile itself drawn from the seed) commits byte-identical honest
+# settled ledgers across processes with different hash seeds.
+_FUZZ_DRIVER = r"""
+import hashlib
+from cleisthenes_tpu_torch.tools.fuzz import sample_schedule, _build_cluster, _apply_event
+from cleisthenes_tpu_torch.core.ledger import encode_batch_body
+from cleisthenes_tpu_torch.protocol.cluster import run_until_drained
+
+schedule = sample_schedule(13, wan=True)
+assert schedule["wan_profile"], "wan band did not draw a profile"
+cluster = _build_cluster(schedule, trace=False, crypto="cpu")
+bad = set(schedule["bad"])
+honest = [nid for nid in cluster.ids if nid not in bad]
+for i in range(schedule["txs"]):
+    cluster.nodes[honest[i % len(honest)]].add_transaction(
+        b"fuzz-%06d" % i
+    )
+by_round = {}
+for ev in schedule["timeline"]:
+    by_round.setdefault(ev["round"], []).append(ev)
+
+def before_round(r):
+    for ev in by_round.get(r, ()):
+        _apply_event(cluster, ev)
+
+run_until_drained(
+    cluster.net,
+    cluster.nodes,
+    skip=bad,
+    max_rounds=schedule["rounds"],
+    before_round=before_round,
+)
+h = hashlib.sha256()
+depth = None
+for nid in honest:
+    batches = cluster.nodes[nid].committed_batches
+    depth = len(batches) if depth is None else min(depth, len(batches))
+    for epoch, batch in enumerate(batches):
+        h.update(nid.encode() + encode_batch_body(epoch, batch))
+assert depth and depth >= 1, f"no settled epochs (depth={depth})"
+print("WAN_LEDGER_DIGEST=%s profile=%s depth=%d"
+      % (h.hexdigest(), schedule["wan_profile"], depth))
+"""
+
+
+def _run_wan_driver(hashseed: str) -> str:
+    env = dict(os.environ)
+    env["PYTHONHASHSEED"] = hashseed
+    env.setdefault("JAX_PLATFORMS", "cpu")
+    proc = subprocess.run(
+        [sys.executable, "-c", _FUZZ_DRIVER],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, (
+        f"PYTHONHASHSEED={hashseed} WAN run failed:\n"
+        f"{proc.stdout}\n{proc.stderr}"
+    )
+    for line in proc.stdout.splitlines():
+        if line.startswith("WAN_LEDGER_DIGEST="):
+            return line
+    raise AssertionError(f"no digest line in output:\n{proc.stdout}")
+
+
+def test_wan_ledgers_identical_across_hash_seeds():
+    a = _run_wan_driver("1")
+    b = _run_wan_driver("2")
+    assert a == b, (
+        "seeded WAN fuzz runs under different PYTHONHASHSEED values "
+        f"committed different ledger bytes:\n  {a}\n  {b}\n"
+        "-> non-seeded entropy or iteration order is leaking into "
+        "the link model's delivery schedule (see staticcheck DET001 "
+        "on transport/wan*.py)"
+    )
 
 
 # ---------------------------------------------------------------------------
