@@ -34,7 +34,7 @@ before printing any result.  It prints, in order:
    both of its plans' boundary, on all-zero, all-short and
    length-ordered exponents and on ragged batches of 1, 31, 33 and 4,099
    rows: ``pow_edge_rows``) and the Montgomery product (16,384) — held
-   against their plain versions (timed once after a warm-up at N=512)
+   against their plain versions (timed once after a warm-up)
    and against Python's ``pow`` on a sample, in the default group and,
    parity only, in a second 256-bit group; the
    GF(2^16) codec (K11) at the N=512/f=170 epoch's shapes (B=512,
@@ -61,13 +61,20 @@ before printing any result.  It prints, in order:
    all-ones; e2 = 0 beside e1 != 0), held against their plain versions
    and Python's ``pow``.  The timed lines carry the kernel's time (CUDA
    events, median of 20 calls after a warm-up; 5 for the 2048-bit
-   group), the plain version's (median of 3), launches per call and the
+   group), the plain version's (once), launches per call and the
    bound (for a pow or dual pow, from the fewest Montgomery products a
    fixed-window method needs for the run's exponents, each product's
    instructions split by pipe, ``mont_bound``; for the comb, the
    fewest a comb of any width 2..8 per base needs, ``least_comb``; for
    the GF codecs also the tensor-core bound, their bit products at the
-   b1 yardstick against their bytes);
+   b1 yardstick against their bytes); last the rows phase
+   (``rows_phase``): ``sha256_rows`` (K4) at 16,384 rows of 128 bytes with
+   the prefix 0x00, 8,192 of 64 with 0x01 and 4,096 of 1,001 with none,
+   and ``mont_mul_batch`` (K10) at 16,384 and 1,048,576 products, each
+   byte-equal to its plain version and to ``hashlib`` or Python's integers,
+   one launch a call, with its entry time, its time alone from a replayed
+   CUDA graph, its plain version's and its bound; K10 also on values in
+   [p, 2^264);
 3. three paths through ``LockstepCluster`` with its defaults (the
    'cuda' backend), each committing 3 epochs (the N=512 path 2) of
    random 64-byte transactions, every one exactly once, with the launch counts set to
@@ -389,9 +396,11 @@ def tc_bound(nbytes: int, bit_products: int, b1_rate: float, int_ops: int = 0,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median ms per call: CUDA events around each call after a warm-up."""
-    fn()
+def time_ms(torch, fn, reps: int, warm: bool = True) -> float:
+    """Median ms per call: CUDA events around each call after a warm-up
+    (``warm=False``: the caller has just called ``fn``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -685,7 +694,7 @@ def kernel_phase(torch, n: int, f: int, batch: int, dev, timed: bool, rng, b1_ra
             rec["bit_products"] = bits
         if timed:
             rec["kernel_ms"] = time_ms(torch, kern, 20)
-            rec["plain_ms"] = time_ms(torch, plain, 3)
+            rec["plain_ms"] = time_ms(torch, plain, 1, warm=False)
         line = (
             f"kernel {name} n={n} f={f} B={b} k={k} L={L}: "
             f"equal={rec['equal']} launches_per_call={per_call}"
@@ -799,9 +808,11 @@ def edge_phase(torch, dev, rng) -> dict:
                               ("global_rows", 2, 3, 65601, False)):
         shards_np = rng.integers(0, 256, (b, n, L), dtype=np.uint8)
         shards = put(shards_np, off)
+        # the plain forest of >64 KB rows on the host, as the verify's below
+        plain_shards = shards.cpu() if tag == "global_rows" else shards
         trees[tag] = shards_np, held(
             f"merkle_forest@{tag}", lambda: sh.build_forest(shards),
-            lambda: sh.build_forest_plain(shards),
+            lambda: sh.build_forest_plain(plain_shards),
             lambda got: all(got[i, -1].cpu().numpy().tobytes() == hashlib_root(shards_np[i])
                             for i in range(b)))
     for tag, b, n, L, off, high in VERIFY_EDGES:
@@ -847,12 +858,18 @@ VERIFY_EDGES = (
 )
 
 
-def _digits(np, exps, w: int):
-    """(B, nb) big-endian exponent bytes -> (B, ceil(8 nb / w)) digits in
-    base 2^w, most significant first."""
-    bits = np.unpackbits(exps, axis=1)
+def _nonzero_digits(np, exps, w: int, bits=None):
+    """(B, nb) big-endian exponent bytes (or their ``bits``, unpacked) ->
+    (B, ceil(8 nb / w)) bool: each base-2^w digit, most significant first,
+    is nonzero (an OR of the digit's bit columns)."""
+    if bits is None:
+        bits = np.unpackbits(exps, axis=1)
     bits = np.pad(bits, ((0, 0), ((-bits.shape[1]) % w, 0)))
-    return bits.reshape(bits.shape[0], -1, w) @ (1 << np.arange(w - 1, -1, -1))
+    d = bits.reshape(bits.shape[0], -1, w)
+    nz = d[:, :, 0] != 0
+    for j in range(1, w):
+        nz |= d[:, :, j] != 0
+    return nz
 
 
 def _tail(np, nz):
@@ -867,7 +884,7 @@ def least_pow(np, exps):
     multiply per further nonzero digit, out of the domain; none for
     e = 0."""
     def window(w):
-        nz = _digits(np, exps, w) != 0
+        nz = _nonzero_digits(np, exps, w)
         nd = _tail(np, nz)
         return np.where(nd > 0, 2 + (2**w - 2) + w * (nd - 1) + nz.sum(1) - 1, 0)
 
@@ -883,7 +900,7 @@ def least_dual(np, e1, e2):
     both bases into the domain, the result out.  A row whose other
     exponent is 0 is one pow (``least_pow``)."""
     def window(w, joint):
-        n1, n2 = _digits(np, e1, w) != 0, _digits(np, e2, w) != 0
+        n1, n2 = _nonzero_digits(np, e1, w), _nonzero_digits(np, e2, w)
         nd = _tail(np, n1 | n2)
         if joint:
             table, mults = 2 * (2**w - 2) + (2**w - 1) ** 2, (n1 | n2).sum(1)
@@ -1002,16 +1019,17 @@ def least_comb(np, bases, exps, rows) -> int:
     bbits = np.zeros(n_b, np.int64)
     np.maximum.at(bbits, rows, ebits)
     into = 1 + (bases[:, 32] != 0)
+    widths = range(2, 9)
+    per_exp = {w: np.zeros(m, np.int64) for w in widths}
+    for lo in range(0, m, 1 << 17):  # bounded memory at the N=512 shapes
+        bits = np.unpackbits(exps[lo : lo + (1 << 17)], axis=1)
+        for w in widths:
+            nz = _nonzero_digits(np, None, w, bits).sum(1)
+            per_exp[w][lo : lo + len(nz)] = np.maximum(nz - 1, 0) + 1
     best = None
-    for w in range(2, 9):
-        per_exp = np.zeros(m, np.int64)
-        for lo in range(0, m, 1 << 17):  # bounded memory at the N=512 shapes
-            bits = np.unpackbits(exps[lo : lo + (1 << 17)], axis=1)
-            bits = np.pad(bits, ((0, 0), ((-256) % w, 0)))
-            nz = bits.reshape(bits.shape[0], -1, w).any(2).sum(1)
-            per_exp[lo : lo + len(nz)] = np.maximum(nz - 1, 0) + 1
+    for w in widths:
         r = np.maximum(-(-bbits // w), 1)
-        cost = into + w * (r - 1) + r * (2**w - 2) + np.bincount(rows, per_exp, n_b)
+        cost = into + w * (r - 1) + r * (2**w - 2) + np.bincount(rows, per_exp[w], n_b)
         best = cost if best is None else np.minimum(best, cost)
     return int(best.sum())
 
@@ -1202,7 +1220,7 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
     shapes = MODEXP_SHAPES.items() if timed else [("small", (1100, 16, 70, 1024))]
     for tag, (n_g, n_b, g_b, n_dual) in shapes:
         suffix = "" if tag in ("n128", "small") else f"@{tag}"
-        reps = 1 if tag == "n512" else 3
+        reps = 1
         cases["pow_grouped" + suffix] = comb_case(*comb_inputs(rnd, p, n_g, n_b, g_b)) + (reps,)
         cases["dual_pow" + suffix] = dual_case(*dual_inputs(rnd, p, n_dual)) + (reps,)
         if suffix:
@@ -1217,7 +1235,7 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
             lambda: mx.pow_fused(*pw, spec),
             lambda: mx.pow_fused_plain(*pw, spec),
             n_pow * (33 + 32 + 33), lambda: pow_products(np, *pow_np),
-            lambda i: pow(pb[i], pe[i], p), 3,
+            lambda i: pow(pb[i], pe[i], p), 1,
         )
         xs = [rnd.randrange(p) for _ in range(n_mont)]
         ys = [rnd.randrange(p) for _ in range(n_mont)]
@@ -1226,7 +1244,7 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
             lambda: mx.mont_mul_batch(*mm_, spec),
             lambda: mx.mont_mul_batch_plain(*mm_, spec),
             n_mont * 3 * 33, lambda: n_mont,
-            lambda i: xs[i] * ys[i] * r_inv % p, 3,
+            lambda i: xs[i] * ys[i] * r_inv % p, 1,
         )
     if timed:
         for n in MODEXP_RAGGED:
@@ -1269,7 +1287,7 @@ def modexp_phase(torch, p: int, dev, timed: bool, rnd) -> dict:
             if name == "pow":  # the decrypt-combine shape
                 rec["schedule_products"] = schedule_products(np, *pow_np, rec["plan"])
             rec["kernel_ms"] = time_ms(torch, kern, 20)
-            rec["plain_ms"] = time_ms(torch, plain, reps)
+            rec["plain_ms"] = time_ms(torch, plain, reps, warm=False)
             rec["bound_ms"], rec["bound_by"] = mont_bound(nbytes, n_prod)
             rec["bound_one_pipe_ms"] = mont_bound_one_pipe(nbytes, n_prod)
             rec["products"] = n_prod
@@ -1419,7 +1437,7 @@ def wide_phase(torch, dev, rnd) -> dict:
             if timed:
                 n_prod = products()
                 rec["kernel_ms"] = time_ms(torch, kern, reps)
-                rec["plain_ms"] = time_ms(torch, plain, 3)
+                rec["plain_ms"] = time_ms(torch, plain, 1, warm=False)
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, n_prod * WIDE_BOUND_OPS[spec.nw])
                 rec["products"] = n_prod
                 line += (
@@ -1429,6 +1447,110 @@ def wide_phase(torch, dev, rnd) -> dict:
                 )
             print(line, flush=True)
             out[f"{name}@{tag}"] = rec
+    return out
+
+
+# K4 and K10 at the shapes their redesign is judged by: the table's N=128
+# leaves (16,384 rows of 128 bytes after the prefix 0x00), the reference's
+# device floor for node rows (XlaMerkle._hash_batch: 8,192 rows of 64 bytes
+# after 0x01), and a ragged length with no prefix (1,001 bytes: across
+# 16-byte granules, 64-byte blocks and K4's 256-byte staging chunk); K10 at
+# the table's 16,384 products and at 1,048,576, where the bytes bind
+ROWS_SHAPES = (("leaves", 16384, 128, 0), ("nodes", 8192, 64, 1), ("ragged", 4096, 1001, None))
+MUL_SHAPES = (16384, 1 << 20)
+
+
+def mul_rows(np, rng, p: int, n: int, unreduced: bool = False):
+    """(x, y) as (n, 33) little-endian rows below p (p's top byte 0xFF:
+    a top byte below it keeps a value below p); with ``unreduced`` every
+    third row of every other warp holds values in [p, 2^264)."""
+    assert p >> 248 == 0xFF
+    xy = rng.integers(0, 256, (2, n, 33), dtype=np.uint8)
+    xy[:, :, 32] = 0
+    xy[:, :, 31] = np.minimum(xy[:, :, 31], 0xFE)
+    if unreduced:
+        rows = np.arange(n)
+        big = (rows % 3 == 0) & ((rows // 32) % 2 == 1)
+        xy[:, big, 31] = 0xFF
+        xy[0, big, 32] = rng.integers(1, 256, int(big.sum()), dtype=np.uint8)
+    return xy[0], xy[1]
+
+
+def rows_phase(torch, dev, rng, p: int, rows_shapes=ROWS_SHAPES, mul_shapes=MUL_SHAPES,
+               timed: bool = True) -> dict:
+    """K4 (``sha256_rows``) at ``ROWS_SHAPES`` and K10 (``mont_mul_batch``)
+    at ``MUL_SHAPES``, each held byte for byte to its plain version and
+    to ``hashlib`` (a sample) or Python's integers (every row), one launch
+    a call, and timed: the entry point by CUDA events (median of 20), the
+    kernel alone from a replayed CUDA graph, the plain version once, the
+    bound from the bytes and the SASS's ops; K10 once more, untimed, on
+    16,384 rows with values in [p, 2^264) in every other warp.  On the CPU
+    (a rehearsal at small shapes, untimed) the plain versions run.
+    Returns {"sha256_rows@<tag>" or "mont_mul@<n>": record}."""
+    import numpy as np
+
+    from cleisthenes_tpu_torch.csrc.build import COUNTS
+    from cleisthenes_tpu_torch.ops import modexp_cuda as mx
+    from cleisthenes_tpu_torch.ops import sha256_cuda as sh
+    from cleisthenes_tpu_torch.ops.modmath import bytes33_to_ints
+
+    def held(kern, plain):
+        before = sum(COUNTS.kernels.values())
+        got = kern()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        per_call = sum(COUNTS.kernels.values()) - before
+        want = plain()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        return got, {"equal": torch.equal(got, want) and per_call == (dev.type == "cuda"),
+                     "max_abs_err": float(err), "launches_per_call": per_call}
+
+    def time_it(rec, kern, plain, nbytes, ops):
+        if not timed:
+            return ""
+        rec["kernel_ms"] = time_ms(torch, kern, 20)
+        rec["alone_ms"] = graph_ms(torch, kern, 20)
+        rec["plain_ms"] = time_ms(torch, plain, 1, warm=False)
+        rec["bound_ms"], rec["bound_by"] = ops(nbytes)
+        return (f"kernel_ms={rec['kernel_ms']} alone_ms={rec['alone_ms']} "
+                f"plain_ms={rec['plain_ms']} bound_ms={rec['bound_ms']} ({rec['bound_by']}) "
+                f"x_bound_alone={rec['alone_ms'] / rec['bound_ms']}")
+
+    out = {}
+    for tag, b, L, prefix in rows_shapes:
+        msgs_np = rng.integers(0, 256, (b, L), dtype=np.uint8)
+        msgs = torch.from_numpy(msgs_np).to(dev)
+        kern = (lambda m=msgs, pre=prefix: sh.sha256_rows(m, pre))
+        plain = (lambda m=msgs, pre=prefix: sh.sha256_rows_plain(m, pre))
+        got, rec = held(kern, plain)
+        head = b"" if prefix is None else bytes([prefix])
+        dig = got.cpu().numpy()
+        for i in sorted({0, b - 1} | set(rng.choice(b, min(b, 64), replace=False).tolist())):
+            rec["equal"] &= dig[i].tobytes() == hashlib.sha256(head + msgs_np[i].tobytes()).digest()
+        n_blocks = b * blocks(L + len(head))
+        rec.update(rows=b, msg_len=L, prefix=prefix, compressions=n_blocks)
+        line = time_it(rec, kern, plain, b * (L + 32), lambda nb, k=n_blocks: bound(nb, *sha_ops(k, 0)))
+        print(f"rows sha256_rows@{tag} B={b} L={L} prefix={prefix}: equal={rec['equal']} "
+              f"launches_per_call={rec['launches_per_call']} {line}", flush=True)
+        out[f"sha256_rows@{tag}"] = rec
+    spec = mx.mont_spec(p)
+    r_inv = pow(2**256, -1, p)
+    for n, unreduced in [(n, False) for n in mul_shapes] + [(mul_shapes[0], True)]:
+        x_np, y_np = mul_rows(np, rng, p, n, unreduced)
+        x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+        kern = (lambda a=x, b_=y: mx.mont_mul_batch(a, b_, spec))
+        plain = (lambda a=x, b_=y: mx.mont_mul_batch_plain(a, b_, spec))
+        got, rec = held(kern, plain)
+        res = bytes33_to_ints(got.cpu().numpy())
+        rec["equal"] &= res == [a * b_ * r_inv % p for a, b_ in
+                                zip(bytes33_to_ints(x_np), bytes33_to_ints(y_np))]
+        rec["rows"] = n
+        tag = "unreduced" if unreduced else str(n)
+        line = "" if unreduced else time_it(rec, kern, plain, n * 3 * 33,
+                                            lambda nb, k=n: mont_bound(nb, k))
+        print(f"rows mont_mul@{tag} n={n}: equal={rec['equal']} "
+              f"launches_per_call={rec['launches_per_call']} {line}", flush=True)
+        out[f"mont_mul@{tag}"] = rec
     return out
 
 
@@ -2127,7 +2249,7 @@ def _p50(xs):
 def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
                          tag: str = "async_n64") -> dict:
     """Each entry point of the async path held to its plain version and
-    timed (kernel by CUDA events, median of 20; plain, median of 3) on
+    timed (kernel by CUDA events, median of 20; plain, once) on
     the inputs of one of its own calls in the measured run: K1 and K5 at
     their propose call (B=1; the median call by rows), K6, K3, K8 and K9
     at their median hub-wave call by rows; with the bounds ``kernel_phase``
@@ -2226,7 +2348,8 @@ def async_kernel_records(torch, calls, b1_rate: float, sites=ASYNC_SITES,
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got_t, want_t))
         rec = {"equal": equal, "max_abs_err": float(err), "shape": shape, "calls": n_calls,
-               "kernel_ms": time_ms(torch, kern, 20), "plain_ms": time_ms(torch, plain, 3)}
+               "kernel_ms": time_ms(torch, kern, 20),
+               "plain_ms": time_ms(torch, plain, 1, warm=False)}
         if name in ("dual_pow", "pow_grouped", "pow"):
             rec["bound_ms"], rec["bound_by"] = mont_bound(nbytes, products)
             rec["products"] = products
@@ -2940,8 +3063,8 @@ def grpc_quiesce(hosts, still_s: float = GRPC_QUIET_S,
     t0 = time.monotonic()
 
     def reading():
-        for h in hosts.values():
-            h.dispatcher.drain()
+        for h in hosts.values():  # the wait's own budget, not drain's 30 s
+            h.dispatcher.drain(timeout=max(1.0, timeout - (time.monotonic() - t0)))
         return {nid: scrape_counters(nid, h.node.metrics.snapshot())
                 for nid, h in hosts.items()}
 
@@ -3698,16 +3821,21 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(2026)
     rnd = random.Random(2026)
-    phases = {
-        "n128": kernel_phase(torch, N, F, BATCH, dev, True, rng, b1_rate),
-        "n100": kernel_phase(torch, 100, 33, BATCH, dev, False, rng, b1_rate),
-        "modexp": modexp_phase(torch, P_DEFAULT, dev, True, rnd),
-        "modexp_p2": modexp_phase(torch, P2, dev, False, rnd),
-        "n512": kernel_phase(torch, 512, 170, 4096, dev, True, rng, b1_rate),
-        "n300": kernel_phase(torch, 300, 99, 4096, dev, False, rng, b1_rate),
-        "edges": edge_phase(torch, dev, rng),
-        "wide": wide_phase(torch, dev, rnd),
-    }
+    phases = {}
+    for where, run in (
+        ("n128", lambda: kernel_phase(torch, N, F, BATCH, dev, True, rng, b1_rate)),
+        ("n100", lambda: kernel_phase(torch, 100, 33, BATCH, dev, False, rng, b1_rate)),
+        ("modexp", lambda: modexp_phase(torch, P_DEFAULT, dev, True, rnd)),
+        ("modexp_p2", lambda: modexp_phase(torch, P2, dev, False, rnd)),
+        ("n512", lambda: kernel_phase(torch, 512, 170, 4096, dev, True, rng, b1_rate)),
+        ("n300", lambda: kernel_phase(torch, 300, 99, 4096, dev, False, rng, b1_rate)),
+        ("edges", lambda: edge_phase(torch, dev, rng)),
+        ("wide", lambda: wide_phase(torch, dev, rnd)),
+        ("rows", lambda: rows_phase(torch, dev, rng, P_DEFAULT)),
+    ):
+        t_phase = time.perf_counter()
+        phases[where] = run()
+        print(f"kernel phase {where} took {time.perf_counter() - t_phase} s", flush=True)
     bad = [
         f"{name}@{where}"
         for where, recs in phases.items()
@@ -3744,15 +3872,25 @@ def main() -> int:
                "wide_pow", "wide_dual_pow"),
         absent=("pow_grouped", "dual_pow", "pow"),
     )
+
+    def done(what):
+        print(f"{what} done at {time.perf_counter() - t_start} s", flush=True)
+
+    done("lockstep paths")
     mesh_res = mesh_phase(torch, dev, rng, rnd, n128_bodies)
     fuzz_res = fuzz_phase(torch)
+    done("mesh and fuzz phases")
     async_res = async_phase(torch, b1_rate)
+    done("async_phase")
     byz_res = byzantine_phase(torch, b1_rate)
+    done("byzantine_phase")
     grpc_res = grpc_phase(torch, b1_rate)
     demo_launches = demo_phase(torch)
+    done("grpc and demo phases")
     dkg_launches = dkg_run_phase(torch, dev)
     dkg_steps = dkg_roster_phase(torch, dev)
     share_launches = share_phase(torch, dev)
+    done("DKG and share phases")
     # last, so that its epoch shifts nothing the timed paths share (the
     # combine memo's fill, the profiler's host objects)
     profile_phase(torch, 512, 4096)
@@ -3838,6 +3976,9 @@ def main() -> int:
         if name in OFF_PATH:
             kernels[-1]["kernel_phase_launches"] = rec["launches_per_call"]
             kernels[-1]["off_path"] = OFF_PATH[name]
+            kernels[-1]["shapes"] = {
+                tag.split("@")[1]: {k_: v_ for k_, v_ in r_.items() if k_ != "equal"}
+                for tag, r_ in phases["rows"].items() if tag.startswith(name + "@")}
         if "tc_bound_ms" in rec:
             kernels[-1]["bounds"] = {"int_ops_ms": rec["int_bound_ms"],
                                      "tensor_core_ms": rec["tc_bound_ms"]}

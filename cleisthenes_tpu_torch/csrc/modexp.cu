@@ -80,8 +80,19 @@
 //   b^0 .. b^(2^W - 1) in shared memory and runs W squarings a digit from
 //   its top digit, with a table product unless the whole warp's digit is
 //   zero; a warp of zero exponents makes none of them.
-// - K10 keeps the first design's schedule, one thread a row, on the
-//   one-lane product.
+// - K10 is one product on 66 bytes in and 33 out, so at a call of a
+//   million rows the bytes bind (3.35 TB/s), at the 16,384 rows of a small
+//   call the launch and one product's chain.  A warp stages its 32 rows'
+//   a and b (1,056 bytes each, 66 granules) in shared memory with coalesced
+//   16-byte loads, a lane builds its row's eight words and 33rd byte from
+//   nine aligned words with funnel shifts (33 t mod 4 is the byte offset),
+//   makes one one-lane product, and writes its row back as eight aligned
+//   words, the word it shares with the row before it joined by a shuffle,
+//   for the warp to store with 16-byte stores.  Warps stage and store alone
+//   (no block barrier); blocks of 32 to 128 threads spread the rows over
+//   every SM.  A value need not be reduced: a warp where some lane's a or b
+//   is not below 2^256, or both are not below p, reduces both first
+//   (team_to_mont, then a product by 1), as the pows take their bases.
 // ptxas's registers and spills per kernel are printed by csrc/sass_ops.py.
 
 #include <cuda_runtime.h>
@@ -94,7 +105,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMulThreads = 128;  // K10's largest block
 constexpr int kWords = 8;          // 8 x 32-bit limbs: R = 2^256
 constexpr int kSpecWords = 33;     // p, pinv, one, r2, r3
 constexpr int kExpBytes = 32;      // an exponent row (big-endian)
@@ -111,7 +122,7 @@ struct MontSpec {
 // The team product (csrc/mont_team.cuh, 8 words) serves every kernel here:
 // with one lane (Plan1) K10 below, one thread a row, and K7, K8 and K9 with
 // their plans.
-using Plan1 = Plan<8, 32, 1, 1, 1, kThreads, 1>;
+using Plan1 = Plan<8, 32, 1, 1, 1, kMulThreads, 1>;
 
 // This lane's K words of a staged 33-byte little-endian value row (its low
 // 32 bytes); returns the 33rd byte.
@@ -150,18 +161,111 @@ __device__ __forceinline__ void store_value(uint8_t* dst, const uint32_t x[kWord
   dst[kExpBytes] = 0;
 }
 
+// K10's staging: a warp's 32 value rows, 1,056 bytes (66 granules).
+constexpr int kWarpRowBytes = 32 * kValBytes;
+static_assert(kWarpRowBytes % 16 == 0, "a warp's rows are whole granules");
+
+// Lane t's 33-byte row of a warp's staged rows (row t at byte 33 t, byte
+// offset t mod 4 in its first word): its eight little-endian words in x,
+// its 33rd byte returned; nine aligned 32-bit reads, which the 32 lanes
+// make on 32 distinct banks.
+__device__ __forceinline__ uint32_t staged_value(const uint32_t* rows, unsigned lane,
+                                                 uint32_t x[kWords]) {
+  const uint32_t* at = rows + (kValBytes * lane >> 2);
+  const int sh = 8 * (int)(lane & 3u);
+  uint32_t v[kWords + 1];
+#pragma unroll
+  for (int j = 0; j <= kWords; ++j) v[j] = at[j];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) x[j] = __funnelshift_r(v[j], v[j + 1], sh);
+  return (v[kWords] >> sh) & 0xFFu;
+}
+
+// Lane t's result x < p (33rd byte zero) into its row of the warp's rows:
+// the eight aligned words from the one holding its first byte on, the word
+// it shares with row t - 1 joined with that lane's part by a shuffle, and
+// the ninth word only where no row shares it (t mod 4 = 3).  Every lane of
+// the warp calls it.
+__device__ __forceinline__ void put_value(uint32_t* rows, unsigned lane,
+                                          const uint32_t x[kWords]) {
+  uint32_t* at = rows + (kValBytes * lane >> 2);
+  const int s = (int)(lane & 3u);
+  uint32_t o[kWords + 1];
+  o[0] = x[0] << (8 * s);
+#pragma unroll
+  for (int j = 1; j < kWords; ++j) o[j] = __funnelshift_l(x[j - 1], x[j], 8 * s);
+  o[kWords] = __funnelshift_l(x[kWords - 1], 0u, 8 * s);
+  const uint32_t before = __shfl_up_sync(kFull, o[kWords], 1);
+  if (s > 0) o[0] |= before;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) at[j] = o[j];
+  if (s == 3) at[kWords] = o[kWords];
+}
+
+// x < p, for x of the row's eight words and 33rd byte h.
+__device__ __forceinline__ bool below_p(const uint32_t x[kWords], uint32_t h,
+                                        const Lane<Plan1>& L) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j)
+    borrow = (uint32_t)(((uint64_t)x[j] - L.p[j] - borrow) >> 63);
+  return h == 0 && borrow != 0;
+}
+
+// x mod p in place, for x of the row's eight words and 33rd byte h:
+// x R mod p (team_to_mont), then a product by 1.  Every lane of the warp
+// calls it.
+__device__ __forceinline__ void reduce_value(uint32_t x[kWords], uint32_t h,
+                                             const MontSpec& s, const Lane<Plan1>& L) {
+  uint32_t xm[kWords], one[kWords];
+  team_to_mont<Plan1>(xm, x, h, s, L);
+  unit_slice<Plan1>(0, one);
+  team_prod<Plan1>(x, xm, one, L);
+}
+
+// out[i] = a[i] b[i] / 2^256 mod p for rows of any value below 2^264: warp
+// w of the grid takes rows [32 w, 32 w + 32), staged in its 2,112 bytes of
+// shared memory (a's rows, then b's; the results go back over a's).
 __global__ void mont_mul_kernel(const uint8_t* __restrict__ a,
                                 const uint8_t* __restrict__ b,
                                 uint8_t* __restrict__ out, long long n,
                                 const __grid_constant__ MontSpec s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = (int)(threadIdx.x >> 5);
+  const long long first = ((long long)blockIdx.x * blockDim.x + warp * 32);
+  if (first >= n) return;  // a whole warp past the rows
+  const int here = (int)min(32ll, n - first);
+  uint8_t* sa = smem + warp * 2 * kWarpRowBytes;
+  uint8_t* sb = sa + kWarpRowBytes;
+  copy_in(sa, a + first * kValBytes, here * kValBytes, here * kValBytes, (int)lane, 32);
+  copy_in(sb, b + first * kValBytes, here * kValBytes, here * kValBytes, (int)lane, 32);
+  __syncwarp();
   const Lane<Plan1> L = make_lane<Plan1>(s);
   uint32_t x[kWords], y[kWords];
-  value_words<Plan1>(a + i * kValBytes, 0, x);
-  value_words<Plan1>(b + i * kValBytes, 0, y);
-  team_prod<Plan1>(x, x, y, L);
-  store_value(out + i * kValBytes, x);
+  const uint32_t hx = staged_value(reinterpret_cast<const uint32_t*>(sa), lane, x);
+  const uint32_t hy = staged_value(reinterpret_cast<const uint32_t*>(sb), lane, y);
+  // one product when a < 2^256 and b < p, or the other way round
+  const bool y_low = below_p(y, hy, L);
+  const bool direct = (int)lane >= here ||
+                      (y_low ? hx == 0 : (hy == 0 && below_p(x, hx, L)));
+  if (__all_sync(kFull, direct)) {
+    uint32_t l[kWords], r[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      l[j] = y_low ? x[j] : y[j];
+      r[j] = y_low ? y[j] : x[j];
+    }
+    team_prod<Plan1>(x, l, r, L);
+  } else {
+    reduce_value(x, hx, s, L);
+    reduce_value(y, hy, s, L);
+    team_prod<Plan1>(x, x, y, L);
+  }
+  __syncwarp();  // every lane has read its rows
+  put_value(reinterpret_cast<uint32_t*>(sa), lane, x);
+  __syncwarp();
+  copy_out(out + first * kValBytes, sa, here * kValBytes, (int)lane, 32);
 }
 
 // K7's, K8's and K9's plans: a plan's VB is the 32-byte exponent row (a
@@ -597,12 +701,13 @@ inline bool spec_from(const void* words, MontSpec* s) {
   return (s->p[0] & 1u) != 0;
 }
 
-inline bool grid_ok(long long n) {
-  return n >= 1 && (n + kThreads - 1) / kThreads <= 0x7FFFFFFFll;
-}
-
-inline unsigned grid_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+// K10's block: kMulThreads, halved (down to one warp) while blocks that
+// large would leave SMs without one (16,384 rows take 64-thread blocks,
+// 256 of them).
+inline int mul_threads(long long n, int sms) {
+  int t = kMulThreads;
+  while (t > 32 && (n + t - 1) / t < sms) t >>= 1;
+  return t;
 }
 
 template <class P>
@@ -703,12 +808,21 @@ int launch_comb_apply(const void* exps, const void* rows, const void* table,
 // little-endian words, R = 2^256), launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 
-// out[i] = a[i] * b[i] / 2^256 mod p, for a[i], b[i] in [0, p).
+// out[i] = a[i] * b[i] / 2^256 mod p, for a[i], b[i] in [0, 2^264); any
+// alignment.
 extern "C" int mont_mul(const void* a, const void* b, void* out, long long n,
                         const void* spec, void* stream) {
   MontSpec s;
-  if (!grid_ok(n) || !spec_from(spec, &s)) return (int)cudaErrorInvalidValue;
-  mont_mul_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  if (n < 1 || (n + 31) / 32 > 0x7FFFFFFFll || !spec_from(spec, &s))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc != cudaSuccess) return (int)rc;
+  const int threads = mul_threads(n, sms);
+  mont_mul_kernel<<<(unsigned)((n + threads - 1) / threads), threads,
+                    (size_t)(threads / 32) * 2 * kWarpRowBytes, (cudaStream_t)stream>>>(
       (const uint8_t*)a, (const uint8_t*)b, (uint8_t*)out, n, s);
   return (int)cudaGetLastError();
 }

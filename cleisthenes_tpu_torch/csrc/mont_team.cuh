@@ -270,32 +270,45 @@ __device__ __forceinline__ void unit_slice(int tl, uint32_t v[P::K]) {
   for (int k = 0; k < P::K; ++k) v[k] = (tl == 0 && k == 0) ? 1u : 0u;
 }
 
-// Block-wide copy of `valid` bytes from global memory into shared memory,
-// zero-filled to `total`; 16-byte loads when the source is aligned.
-template <class P>
-__device__ __forceinline__ void stage_in(uint8_t* dst, const uint8_t* src,
-                                         int valid, int total) {
+// Copy of `valid` bytes from global memory into shared memory (16-byte
+// aligned) by `n` threads, this one `tid`, zero-filled to `total`; 16-byte
+// loads when the source is aligned.
+__device__ __forceinline__ void copy_in(uint8_t* dst, const uint8_t* src, int valid,
+                                        int total, int tid, int n) {
   int i0 = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
     const int n16 = valid >> 4;
-    for (int i = threadIdx.x; i < n16; i += P::THREADS)
+    for (int i = tid; i < n16; i += n)
       reinterpret_cast<int4*>(dst)[i] = __ldg(reinterpret_cast<const int4*>(src) + i);
     i0 = n16 << 4;
   }
-  for (int i = i0 + threadIdx.x; i < total; i += P::THREADS)
-    dst[i] = i < valid ? src[i] : (uint8_t)0;
+  for (int i = i0 + tid; i < total; i += n) dst[i] = i < valid ? src[i] : (uint8_t)0;
+}
+
+// The way back: `valid` bytes from shared memory (16-byte aligned) to
+// global memory, 16-byte stores when the destination is aligned.
+__device__ __forceinline__ void copy_out(uint8_t* dst, const uint8_t* src, int valid,
+                                         int tid, int n) {
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+    const int n16 = valid >> 4;
+    for (int i = tid; i < n16; i += n)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+    i0 = n16 << 4;
+  }
+  for (int i = i0 + tid; i < valid; i += n) dst[i] = src[i];
+}
+
+// Block-wide copies.
+template <class P>
+__device__ __forceinline__ void stage_in(uint8_t* dst, const uint8_t* src,
+                                         int valid, int total) {
+  copy_in(dst, src, valid, total, threadIdx.x, P::THREADS);
 }
 
 template <class P>
 __device__ __forceinline__ void stage_out(uint8_t* dst, const uint8_t* src, int valid) {
-  int i0 = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
-    const int n16 = valid >> 4;
-    for (int i = threadIdx.x; i < n16; i += P::THREADS)
-      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
-    i0 = n16 << 4;
-  }
-  for (int i = i0 + threadIdx.x; i < valid; i += P::THREADS) dst[i] = src[i];
+  copy_out(dst, src, valid, threadIdx.x, P::THREADS);
 }
 
 // This lane's K words of a staged VB-byte little-endian row.

@@ -1,7 +1,9 @@
 // Batched SHA-256, Merkle forests and branch verification on Hopper (sm_90a).
 //
 // Replaces the TPU kernels of cleisthenes_tpu/ops/sha256_xla.py:
-//   K4 sha256_batch (:127)     sha256_rows: one digest per fixed-length row
+//   K4 sha256_batch (:127)     sha256_rows: one digest per fixed-length row,
+//                              a thread a row, the block's rows staged in
+//                              shared memory a chunk of the message at a time
 //   K5 build_forest (:157)     merkle_forest: one launch a forest, one block
 //                              a tree
 //   K6 verify_branches (:206)  merkle_verify: a thread a branch proof, its
@@ -34,11 +36,30 @@
 // registers through all D levels, building each 65-byte node message from
 // the two digests with word shifts.
 //
+// Staged messages (staged_block, shared by all three kernels): a message's
+// bytes sit in a thread's slot of shared memory behind a 16-byte lead, and
+// each message block's 16 big-endian words are built from five 16-byte
+// reads of the slot with byte permutes, at any byte offset of the message
+// in the slot (the offset is the row's address mod 16, less one for a
+// prefix byte, which then replaces the byte before the row).
+//
 // Leaf rows (merkle_forest_kernel and merkle_verify_kernel share this): a
 // block stages its rows in shared memory with coalesced 16-byte loads (byte
-// loads when a row is not 16-byte aligned), builds each leaf's message words
-// from them with byte permutes (the 0x00 prefix shifts the row by one byte),
-// and hashes rows past the 64 KB staging budget straight from global memory.
+// loads when a row is not 16-byte aligned), each row at the same offset
+// of its slot, zero past its end, and hashes rows past the 64 KB staging
+// budget straight from global memory.
+//
+// sha256_rows (K4) stages, for each message chunk of kChunkBlocks
+// compressions, the 16-byte granules of global memory that hold the block's
+// rows' bytes of that chunk, every row whole in one coalesced sweep (rows
+// are contiguous, so a warp's loads are consecutive granules), each row's
+// granules into its slot as they lie: the row's address mod 16 becomes its
+// offset in the slot, so any row length and alignment takes 16-byte loads,
+// and a row of any length streams through a fixed slot.  Bytes of the slot
+// past the row's end are its neighbour's and are masked.  A block of 32 to
+// 128 threads (spread_threads) spreads the rows over every SM; a thread a
+// row leaves one warp an SM sub-partition at the table's 16,384 rows, where
+// the compressions' issue, not the loads, is the limit.
 //
 // The forest (merkle_forest_kernel) is one launch with one block per tree,
 // where the reference's and this port's first design ran a launch per level,
@@ -47,7 +68,7 @@
 // the tree level by level with a barrier between levels; a level reads its
 // children from the forest in global memory, which a barrier makes visible
 // within the block, so any p up to the 65,536 leaves of the GF(2^16) codec
-// works.  sha256_rows keeps the one-thread-a-row form for K4.
+// works.
 //
 // The verify (merkle_verify_kernel) puts each level's digests in left/right
 // order with selects on bit d of the index, then hashes one node: the lanes
@@ -81,8 +102,6 @@ __constant__ uint32_t kK[64] = {
     0x2748774Cu, 0x34B0BCB5u, 0x391C0CB3u, 0x4ED8AA4Au, 0x5B9CCA4Fu,
     0x682E6FF3u, 0x748F82EEu, 0x78A5636Fu, 0x84C87814u, 0x8CC70208u,
     0x90BEFFFAu, 0xA4506CEBu, 0xBEF9A3F7u, 0xC67178F2u};
-
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
@@ -188,52 +207,73 @@ __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t w[8]) {
            ((uint32_t)p[4 * i + 2] << 8) | (uint32_t)p[4 * i + 3];
 }
 
-// Thread t digests the msg_len bytes of row t at in + t * msg_len.
-__global__ void sha256_rows_kernel(const uint8_t* __restrict__ in, long long rows,
-                                   long long msg_len, int prefix,
-                                   uint8_t* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= rows) return;
-  uint32_t st[8];
-  sha256_msg(in + t * msg_len, msg_len, prefix, st);
-  store_digest16(st, out + t * 32);
+// Message block `blk` (message bytes [64 blk, 64 blk + 64)) of a message of
+// `total` bytes, as 16 big-endian words in w, from a slot of shared memory
+// (16-byte aligned, `nq` quads readable, zeros read past them) whose byte
+// e + 64 qb is the block's first message byte (e in [0, 32)).  With a
+// prefix (>= 0) the message's byte 0 is the prefix, whatever the slot holds
+// there.  The padding (0x80 at byte `total`, the bit length in the last
+// block) is added here; with kMask the slot's bytes past `total` are not
+// the message's (a neighbour's row) and are cleared, without it the slot
+// holds zeros there.  Five 16-byte reads give the 20 words that hold the
+// block's 68-byte window; word i of the block is bytes e + 4 i .. + 3 of it,
+// two selects (on e's word offset) and a byte permute (on its byte offset).
+template <bool kMask>
+__device__ __forceinline__ void staged_block(const uint32_t* slot, int e, int qb, int nq,
+                                             long long blk, long long total, int prefix,
+                                             uint32_t w[16]) {
+  const int q0 = (e >> 4) + 4 * qb;
+  const int d = (e >> 2) & 3;
+  const uint32_t sel = 0x0123u + 0x1111u * (uint32_t)(e & 3);
+  uint32_t s[20];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const uint4 v = q0 + k < nq ? reinterpret_cast<const uint4*>(slot)[q0 + k]
+                                : make_uint4(0u, 0u, 0u, 0u);
+    s[4 * k] = v.x; s[4 * k + 1] = v.y; s[4 * k + 2] = v.z; s[4 * k + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 19; ++i) s[i] = (d & 1) ? s[i + 1] : s[i];
+#pragma unroll
+  for (int i = 0; i < 17; ++i) s[i] = (d & 2) ? s[i + 2] : s[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = __byte_perm(s[i], s[i + 1], sel);
+  const long long pos = 64 * blk;
+  const long long tp = total - pos;  // the 0x80 byte's place in the block
+  if (kMask && tp < 64) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const long long v = tp - 4 * i;  // message bytes in word i
+      if (v <= 0) w[i] = 0;
+      else if (v < 4) w[i] &= ~0u << (8 * (4 - (int)v));
+    }
+  }
+  if (pos == 0 && prefix >= 0) w[0] = (w[0] & 0x00FFFFFFu) | ((uint32_t)prefix << 24);
+  if (tp >= 0 && tp < 64) {
+    const int tw = (int)tp >> 2;
+    const uint32_t tbit = 0x80u << (24 - 8 * ((int)tp & 3));
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i == tw) w[i] |= tbit;
+  }
+  if (tp <= 64 - 9) {  // the last block
+    const unsigned long long bitlen = (unsigned long long)total * 8ull;
+    w[14] = (uint32_t)(bitlen >> 32);
+    w[15] = (uint32_t)bitlen;
+  }
 }
 
-// SHA-256(0x00 || row) of a row staged in shared memory as little-endian
-// words, zero from row word `lw` on, read 16 bytes at a time up to `lw4`
-// (lw rounded up to 4).  Message word i of a block holds row bytes 4i-1 ..
-// 4i+2 big-endian: __byte_perm of row words i-1 and i; row word -1 is 0, so
-// its top byte is the prefix 0x00.
-__device__ void sha256_leaf_staged(const uint32_t* row, int lw4, int len,
+// SHA-256(0x00 || row) of a row staged in its slot behind a 16-byte lead
+// (row byte 0 at slot word 4), zero from row word `lw` on, `lw4` words (lw
+// rounded up to 4) readable: the message's byte m is slot byte 15 + m.
+__device__ void sha256_leaf_staged(const uint32_t* slot, int lw4, int len,
                                    uint32_t st[8]) {
   const int total = len + 1;
   const int nblocks = (total + 9 + 63) / 64;
-  const int tw = total >> 2;  // message word of the 0x80 byte
-  const uint32_t tbit = 0x80u << (24 - 8 * (total & 3));
-  const uint32_t bitlen = (uint32_t)total * 8u;  // < 2^32: rows staged are < 64 KB
   sha256_init(st);
-  uint32_t prev = 0;
   for (int q = 0; q < nblocks; ++q) {
     uint32_t w[16];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int m = 16 * q + 4 * c;
-      const uint4 v = m < lw4 ? *reinterpret_cast<const uint4*>(row + m)
-                              : make_uint4(0u, 0u, 0u, 0u);
-      w[4 * c] = __byte_perm(prev, v.x, 0x3456);
-      w[4 * c + 1] = __byte_perm(v.x, v.y, 0x3456);
-      w[4 * c + 2] = __byte_perm(v.y, v.z, 0x3456);
-      w[4 * c + 3] = __byte_perm(v.z, v.w, 0x3456);
-      prev = v.w;
-    }
-    const int tq = tw - 16 * q;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if (i == tq) w[i] |= tbit;
-    if (q == nblocks - 1) {
-      w[14] = 0;
-      w[15] = bitlen;
-    }
+    staged_block<false>(slot, 15, q, 1 + lw4 / 4, q, total, 0x00, w);
     sha256_compress(st, w);
   }
 }
@@ -244,9 +284,10 @@ __host__ __device__ __forceinline__ long long staged_words(long long L) {
 }
 
 // Rows [0, here) of src (row i at src + i L) into shared memory at pitch_w
-// words a row, little-endian words, zero from byte L to the row's
-// staged_words(L); 16-byte loads when `aligned16` (L a multiple of 16 and
-// src 16-byte aligned), else byte loads.  The whole block takes part.
+// words a slot, each row behind its slot's 16-byte lead, little-endian
+// words, zero from byte L to the row's staged_words(L); 16-byte loads when
+// `aligned16` (L a multiple of 16 and src 16-byte aligned), else byte
+// loads.  The whole block takes part.
 __device__ void stage_rows(const uint8_t* __restrict__ src, long long L, int here,
                            uint32_t* rows, int pitch_w, int aligned16) {
   const int T = blockDim.x, tid = threadIdx.x;
@@ -254,7 +295,7 @@ __device__ void stage_rows(const uint8_t* __restrict__ src, long long L, int her
     const int chunks = (int)(L / 16);
     for (int u = tid; u < here * chunks; u += T) {
       const int rr = u / chunks, cc = u - rr * chunks;
-      reinterpret_cast<uint4*>(rows + rr * pitch_w)[cc] =
+      reinterpret_cast<uint4*>(rows + rr * pitch_w + 4)[cc] =
           reinterpret_cast<const uint4*>(src + rr * L)[cc];
     }
   } else {
@@ -266,7 +307,7 @@ __device__ void stage_rows(const uint8_t* __restrict__ src, long long L, int her
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (4ll * ww + c < L) v |= (uint32_t)r[4 * ww + c] << (8 * c);
-      rows[rr * pitch_w + ww] = v;
+      rows[rr * pitch_w + 4 + ww] = v;
     }
   }
 }
@@ -421,12 +462,70 @@ __global__ void merkle_verify_kernel(const uint8_t* __restrict__ roots,
   ok[i] = diff == 0 ? 1 : 0;
 }
 
+// K4's chunk: compressions a thread makes from one staging of its row, and
+// its slot: a 16-byte lead, the chunk's row bytes at their address's offset
+// mod 16 (at most 17 granules), padded to 4 (mod 8) words as the leaf rows
+// are.
+constexpr int kChunkBlocks = 4;
+constexpr int kSlotWords = 76;
+static_assert(4 * kSlotWords >= 16 + 16 * ((15 + 64 * kChunkBlocks + 15) / 16) &&
+                  4 * kSlotWords >= 16 * (2 + 4 * (kChunkBlocks - 1) + 5) &&
+                  kSlotWords % 8 == 4,
+              "a slot holds a chunk's granules and its last block's reads");
+
+// Thread t digests row first + t (msg_len bytes at in + row msg_len; with a
+// prefix byte when prefix >= 0), a chunk of kChunkBlocks compressions a
+// staging: the whole block first copies the chunk's granules of every row
+// into the rows' slots, consecutive threads on consecutive granules.  A
+// granule is read only when it holds a byte of the chunk's row bytes, so no
+// read leaves the 16-byte-aligned granules of the input.
+__global__ void sha256_rows_kernel(const uint8_t* __restrict__ in, long long rows,
+                                   long long msg_len, int prefix,
+                                   uint8_t* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  uint32_t* slots = reinterpret_cast<uint32_t*>(smem);
+  const int T = blockDim.x, tid = threadIdx.x;
+  const long long first = (long long)blockIdx.x * T;
+  const int here = (int)min((long long)T, rows - first);
+  const int pre = prefix >= 0 ? 1 : 0;
+  const long long total = msg_len + pre;
+  const long long nblocks = (total + 9 + 63) / 64;
+  const uint8_t* src = in + first * msg_len;
+  uint32_t st[8];
+  sha256_init(st);
+  for (long long b0 = 0; b0 < nblocks; b0 += kChunkBlocks) {
+    // the chunk's row bytes [k0, k1): message bytes [64 b0, 64 (b0 + kChunkBlocks))
+    const long long k0 = max(0ll, 64 * b0 - pre);
+    const long long k1 = min(msg_len, 64 * (b0 + kChunkBlocks) - pre);
+    const int len = k1 > k0 ? (int)(k1 - k0) : 0;
+    __syncthreads();  // the last chunk's readers are done
+    if (len > 0) {
+      const int ng = (15 + len + 15) >> 4;  // granules a row, at most
+      for (int u = tid; u < here * ng; u += T) {
+        const int rr = u / ng, g = u - rr * ng;
+        const uintptr_t a = (uintptr_t)(src + rr * msg_len + k0);
+        if (g < (int)(((a & 15) + len + 15) >> 4))
+          reinterpret_cast<uint4*>(slots + rr * kSlotWords)[1 + g] =
+              __ldg(reinterpret_cast<const uint4*>(a & ~(uintptr_t)15) + g);
+      }
+    }
+    __syncthreads();
+    if (tid < here) {
+      const int off = (int)((uintptr_t)(src + tid * msg_len + k0) & 15);
+      const int e = 16 + off - (b0 == 0 ? pre : 0);
+      for (int qb = 0; qb < kChunkBlocks && b0 + qb < nblocks; ++qb) {
+        uint32_t w[16];
+        staged_block<true>(slots + tid * kSlotWords, e, qb, kSlotWords / 4, b0 + qb, total,
+                           prefix, w);
+        sha256_compress(st, w);
+      }
+    }
+  }
+  if (tid < here) store_digest16(st, out + (first + tid) * 32);
+}
+
 constexpr int kForestThreads = 128;
 constexpr int kLeafSmemBytes = 64 * 1024;  // leaf staging a block
-
-inline unsigned grid_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
 
 // How a block of `threads` threads stages leaf rows of L bytes at src:
 // rows a batch, the pitch in words (0: hash from global memory) and
@@ -437,10 +536,11 @@ struct LeafPlan {
 };
 
 inline LeafPlan leaf_plan(long long L, int threads, const void* src) {
-  // rows staged at a pitch of 4 (mod 8) words: 16-byte reads of one word
-  // offset by 8 lanes hit 8 distinct groups of 4 banks
+  // rows staged behind a 16-byte lead at a pitch of 4 (mod 8) words:
+  // 16-byte reads of one word offset by 8 lanes hit 8 distinct groups of 4
+  // banks
   const long long lw4 = staged_words(L);
-  long long pitch_w = lw4 % 8 == 4 ? lw4 : lw4 + 4;
+  long long pitch_w = lw4 % 8 == 0 ? lw4 + 4 : lw4 + 8;
   long long rows = kLeafSmemBytes / (pitch_w * 4);
   if (rows > threads) rows = threads;
   if (rows < 1) {  // a row larger than the staging budget: read global memory
@@ -450,15 +550,24 @@ inline LeafPlan leaf_plan(long long L, int threads, const void* src) {
   return {(int)rows, (int)pitch_w, L % 16 == 0 && ((uintptr_t)src & 15) == 0};
 }
 
-// Threads a block of the verify over B branches on `sms` SMs: 256, halved
-// (down to 32) while blocks that large would leave SMs without one (the
-// N=128 epoch's 16,384 branches take 64-thread blocks, 256 of them; the
-// N=512 epoch's 262,144 take 256-thread blocks).
-inline int verify_threads(long long B, int sms) {
-  int t = 256;
+// Threads a block of a thread-a-message kernel over B messages on `sms`
+// SMs: `most`, halved (down to 32) while blocks that large would leave SMs
+// without one.
+inline int spread_threads(long long B, int sms, int most) {
+  int t = most;
   while (t > 32 && (B + t - 1) / t < sms) t >>= 1;
   return t;
 }
+
+// The verify's: at most 256 (the N=128 epoch's 16,384 branches take
+// 64-thread blocks, 256 of them; the N=512 epoch's 262,144 take 256-thread
+// blocks).
+inline int verify_threads(long long B, int sms) { return spread_threads(B, sms, 256); }
+
+// K4's: at most 128, whose slots (38,912 bytes) fit the default 48 KB (the
+// table's 16,384 rows take 64-thread blocks, 256 of them; 8,192 rows take
+// 32-thread blocks).
+constexpr int kRowsMostThreads = 128;
 
 // What a launch needs to know of the current device, set up once a device under
 // a lock, since a process may drive several cards: its SM count, and the Merkle
@@ -497,14 +606,20 @@ inline cudaError_t device_sms(int* sms) {
 }  // namespace
 
 // out (rows, 32) = SHA-256([prefix byte] || row) of each msg_len-byte row of
-// in; prefix < 0 hashes the rows alone; out must be 16-byte aligned.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// in (any alignment); prefix < 0 hashes the rows alone; out must be 16-byte
+// aligned.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int sha256_rows(const void* in, long long rows, long long msg_len,
                            int prefix, void* out, void* stream) {
   if (rows < 1 || msg_len < 0 || prefix > 255 || ((uintptr_t)out & 15) ||
-      (rows + kThreads - 1) / kThreads > 0x7FFFFFFFll)
+      (rows + 31) / 32 > 0x7FFFFFFFll)
     return (int)cudaErrorInvalidValue;
-  sha256_rows_kernel<<<grid_for(rows), kThreads, 0, (cudaStream_t)stream>>>(
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = spread_threads(rows, sms, kRowsMostThreads);
+  sha256_rows_kernel<<<(unsigned)((rows + threads - 1) / threads), threads,
+                       (size_t)threads * kSlotWords * 4, (cudaStream_t)stream>>>(
       (const uint8_t*)in, rows, msg_len, prefix, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

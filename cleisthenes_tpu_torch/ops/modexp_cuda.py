@@ -31,8 +31,8 @@ The wide entry points take the reference's wide byte contract: values
 
 K10 differs from the reference in its radix.  The reference's
 ``mont_mul_batch`` takes (B, 22) 12-bit limbs and returns
-x*y*2^-264 mod p; the port's takes 33-byte values x, y in [0, p) and
-returns x*y*2^-256 mod p (csrc/modexp.cu keeps 8 x 32-bit limbs, so
+x*y*2^-264 mod p; the port's takes 33-byte values x, y in [0, 2^264)
+and returns x*y*2^-256 mod p in [0, p) (csrc/modexp.cu keeps 8 x 32-bit limbs, so
 R = 2^256).  The two agree on integer semantics:
 out * 2^256 == x * y == ref_out * 2^264 (mod p).
 
@@ -106,6 +106,11 @@ class MontSpec:
     val_bytes = 33  # value rows (264-bit capacity)
     plain_limbs = _L
 
+    @functools.cached_property
+    def ptr(self) -> int:
+        """The address of ``words``, read once (a launch's argument)."""
+        return self.words.ctypes.data
+
 
 @dataclasses.dataclass(frozen=True)
 class WideSpec:
@@ -124,6 +129,11 @@ class WideSpec:
     @property
     def nw(self) -> int:
         return WIDE_WORDS[self.val_bytes]
+
+    @functools.cached_property
+    def ptr(self) -> int:
+        """The address of ``words``, read once (a launch's argument)."""
+        return self.words.ctypes.data
 
     @property
     def plain_limbs(self) -> int:
@@ -349,7 +359,7 @@ def _pow_mont(x: torch.Tensor, e: torch.Tensor, c: dict) -> torch.Tensor:
 
 
 def mont_mul_batch_plain(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Tensor:
-    """(B, 33) x, y in [0, p) -> (B, 33) x*y*2^-256 mod p."""
+    """(B, 33) x, y in [0, 2^264) -> (B, 33) x*y*2^-256 mod p."""
     c = _plain_consts(spec.p, a.device)
     x = _mont(_bytes_to_limbs(a, _L), _bytes_to_limbs(b, _L), c)  # x*y/2^272
     x = _mont(x, c["c288"].expand_as(x), c)  # * 2^288 / 2^272
@@ -439,7 +449,7 @@ def _check_bytes(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 
 def mont_mul_batch(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Tensor:
-    """K10: (B, 33) x, y in [0, p) -> (B, 33) x*y*2^-256 mod p."""
+    """K10: (B, 33) x, y in [0, 2^264) -> (B, 33) x*y*2^-256 mod p."""
     _check_bytes("mont_mul_batch a", a, (-1, 33))
     _check_bytes("mont_mul_batch b", b, (a.shape[0], 33))
     if not _on_cuda(a, b):
@@ -448,7 +458,7 @@ def mont_mul_batch(a: torch.Tensor, b: torch.Tensor, spec: MontSpec) -> torch.Te
     if a.shape[0]:
         _kb.launch(
             "modexp", "mont_mul", ("mont_mul",), a, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), a.shape[0], spec.words.ctypes.data,
+            out.data_ptr(), a.shape[0], spec.ptr,
         )
     return out
 
@@ -486,7 +496,7 @@ def pow_fused(base: torch.Tensor, exp: torch.Tensor, spec: MontSpec) -> torch.Te
         _kb.launch(
             "modexp", "pow_fused", ("pow",), base, base.data_ptr(),
             exp.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b,
-            spec.words.ctypes.data,
+            spec.ptr,
         )
     return out
 
@@ -508,7 +518,7 @@ def dual_pow_fused(
         _kb.launch(
             "modexp", "dual_pow_fused", ("dual_pow",), u1, u1.data_ptr(),
             e1.data_ptr(), u2.data_ptr(), e2.data_ptr(), out.data_ptr(), b,
-            spec.words.ctypes.data,
+            spec.ptr,
         )
     return out
 
@@ -547,7 +557,7 @@ def pow_fused_grouped(
     sites = ("pow_grouped",)
     _kb.launch(
         "modexp", "comb_table", sites, exps, bases.data_ptr(), table.data_ptr(),
-        n, spec.words.ctypes.data,
+        n, spec.ptr,
     )
     # The table build reads no row index, so it goes first and the range
     # check is queued behind it; the check is read back only after the
@@ -557,7 +567,7 @@ def pow_fused_grouped(
     safe = rows.clamp(0, n - 1)
     _kb.launch(
         "modexp", "comb_apply", sites, exps, exps.data_ptr(), safe.data_ptr(),
-        table.data_ptr(), out.data_ptr(), m, spec.words.ctypes.data,
+        table.data_ptr(), out.data_ptr(), m, spec.ptr,
     )
     lo, hi = lo_hi.tolist()
     if lo < 0 or hi >= n:
@@ -578,7 +588,7 @@ def wide_pow_fused(base: torch.Tensor, exp: torch.Tensor, spec: WideSpec) -> tor
         _kb.launch(
             "modexp_wide", "wide_pow_fused", ("wide_pow",), base, base.data_ptr(),
             exp.data_ptr(), out.data_ptr(), base.shape[0], spec.nw,
-            spec.words.ctypes.data,
+            spec.ptr,
         )
     return out
 
@@ -602,7 +612,7 @@ def wide_dual_pow_fused(
         _kb.launch(
             "modexp_wide", "wide_dual_pow_fused", ("wide_dual_pow",), u1, u1.data_ptr(),
             e1.data_ptr(), u2.data_ptr(), e2.data_ptr(), out.data_ptr(), b,
-            spec.nw, spec.words.ctypes.data,
+            spec.nw, spec.ptr,
         )
     return out
 

@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+from unittest import mock
 
+import grpc
 import numpy as np
 import pytest
 
@@ -336,8 +338,20 @@ def _grpc_epoch0(config_cls, host_mod, ledger_mod, cfg_kw, keys):
     cfg = config_cls(n=4, batch_size=8, seed=78, **cfg_kw)
     ids = sorted(keys)
     hosts = {i: host_mod.ValidatorHost(cfg, i, ids, keys[i]) for i in ids}
+    # every gRPC server the hosts start, with its executor: the reference's
+    # stop leaves its unnamed executor's threads idle in the process, so
+    # the teardown below waits for each server and shuts its executor down
+    servers = []
+
+    def recording_server(pool, *args, **kwargs):
+        server = real_server(pool, *args, **kwargs)
+        servers.append((server, pool))
+        return server
+
+    real_server = grpc.server
     try:
-        addrs = {i: h.listen() for i, h in hosts.items()}
+        with mock.patch.object(grpc, "server", recording_server):
+            addrs = {i: h.listen() for i, h in hosts.items()}
         threads = [
             threading.Thread(target=h.connect, args=(addrs,))
             for h in hosts.values()
@@ -356,6 +370,9 @@ def _grpc_epoch0(config_cls, host_mod, ledger_mod, cfg_kw, keys):
     finally:
         for h in hosts.values():
             h.stop()
+        for server, pool in servers:
+            server.stop(None).wait(10)
+            pool.shutdown(wait=True)
 
 
 @pytest.fixture(scope="module")
