@@ -1855,9 +1855,9 @@ def dkg_roster_phase(torch, dev, roster=DKG_ROSTER) -> dict:
     for name, fn in steps.items():
         kept = []
 
-        def keep(kernel, *arrays, kept=kept):
+        def keep(kernel, t_pack, *arrays, kept=kept):
             kept.append((kernel, arrays))
-            return dispatch(kernel, *arrays)
+            return dispatch(kernel, t_pack, *arrays)
 
         before = dict(eng.stats)
         COUNTS.reset()

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from cleisthenes_tpu_torch.ops import modexp_cuda
+from cleisthenes_tpu_torch.utils import trace as _trace
 
 # 256-bit safe prime p = 2q + 1 (generated deterministically, seed
 # 20260729, 64-round Miller-Rabin) and the prime order q of the QR
@@ -169,7 +170,11 @@ class ModEngine:
     calls), ``engine_s`` (wall seconds inside them) and, on 'cuda',
     ``device_s`` (the part from the inputs' upload to the end of the
     result's download, which waits for the kernel); the rest of
-    ``engine_s`` is the host's int<->bytes packing.
+    ``engine_s`` is the host's int<->bytes packing.  Inside a traced
+    lockstep epoch (``utils.trace.ACTIVE``) each 'cuda' call also
+    records ``engine.pack`` (int->bytes, the comb's tables),
+    ``engine.device`` (its ``device_s``) and ``engine.unpack``
+    (bytes->int).
     """
 
     # Below this many exponents a grouped call flattens to pow_batch
@@ -226,10 +231,10 @@ class ModEngine:
         dt = time.perf_counter() - t0  # staticcheck: allow[DET001] stats-only timing
         self.stats["engine_s"] += dt
 
-    def _dispatch(self, kernel, *arrays: np.ndarray) -> List[int]:
+    def _dispatch(self, kernel, t_pack: float, *arrays: np.ndarray) -> List[int]:
         """Upload the packed arrays to the device, run ``kernel`` on
         them and return its (B, value bytes) little-endian result as
-        ints."""
+        ints.  ``t_pack`` is when the caller began packing ``arrays``."""
         t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
         if self.mesh is None:
             # the codecs' arrays are read-only views of bytes objects
@@ -240,9 +245,20 @@ class ModEngine:
             out = kernel(*args, self._spec).cpu().numpy()
         else:
             out = self._dispatch_mesh(kernel, arrays)
-        dt = time.perf_counter() - t0  # staticcheck: allow[DET001] stats-only timing
-        self.stats["device_s"] += dt
-        return bytes33_to_ints(out)
+        t1 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
+        self.stats["device_s"] += t1 - t0
+        vals = bytes33_to_ints(out)
+        tr = _trace.ACTIVE
+        if tr is not None:
+            t2 = tr.now()
+            rows, b_in = len(arrays[0]), sum(a.nbytes for a in arrays)
+            tr.complete("engine", "pack", t_pack, t0, rows=rows, bytes_in=b_in)
+            tr.complete(
+                "engine", "device", t0, t1, rows=rows, bytes_in=b_in,
+                bytes_out=out.nbytes, pinned=False,
+            )
+            tr.complete("engine", "unpack", t1, t2, rows=rows, bytes_out=out.nbytes)
+        return vals
 
     def _dispatch_mesh(self, kernel, arrays) -> np.ndarray:
         """``kernel`` once a mesh device on its block of the rows,
@@ -291,12 +307,13 @@ class ModEngine:
             # reduction — that is only sound for subgroup elements
             flat = self._dispatch(
                 modexp_cuda.pow_fused_grouped,
+                t0,
                 ints_to_bytes33(list(table_of)),
                 exps_to_bytes(flat_e),
                 np.array(rows, dtype=np.int32),
             )
         else:
-            flat = self._pow([b for b, exps in groups for _ in exps], flat_e)
+            flat = self._pow([b for b, exps in groups for _ in exps], flat_e, t0)
         out = []
         off = 0
         for _base, exps in groups:
@@ -311,16 +328,17 @@ class ModEngine:
         if not bases:
             return []
         t0 = time.perf_counter()  # staticcheck: allow[DET001] stats-only timing
-        out = self._pow(bases, exps)
+        out = self._pow(bases, exps, t0)
         self._tally(t0)
         return out
 
-    def _pow(self, bases: Sequence[int], exps: Sequence[int]) -> List[int]:
+    def _pow(self, bases: Sequence[int], exps: Sequence[int], t0: float) -> List[int]:
         gp = self.group.p
         if self.backend == "cuda" and self._wide:
             vb = self._vb
             return self._dispatch(
                 modexp_cuda.wide_pow_fused,
+                t0,
                 _ints_to_val_bytes([b % gp for b in bases], vb),
                 _exps_to_bytes_w(exps, vb),
             )
@@ -328,7 +346,7 @@ class ModEngine:
             # bases ride unreduced (the kernel folds a 33rd byte), as
             # on the reference's device path
             return self._dispatch(
-                modexp_cuda.pow_fused, ints_to_bytes33(bases), exps_to_bytes(exps)
+                modexp_cuda.pow_fused, t0, ints_to_bytes33(bases), exps_to_bytes(exps)
             )
         if self._nat is None:
             return [pow(b, e, gp) for b, e in zip(bases, exps)]
@@ -363,6 +381,7 @@ class ModEngine:
             vb = self._vb
             out = self._dispatch(
                 modexp_cuda.wide_dual_pow_fused,
+                t0,
                 _ints_to_val_bytes([u % gp for u in u1], vb),
                 _exps_to_bytes_w(e1, vb),
                 _ints_to_val_bytes([u % gp for u in u2], vb),
@@ -371,6 +390,7 @@ class ModEngine:
         elif self.backend == "cuda":
             out = self._dispatch(
                 modexp_cuda.dual_pow_fused,
+                t0,
                 ints_to_bytes33(u1),
                 exps_to_bytes(e1),
                 ints_to_bytes33(u2),

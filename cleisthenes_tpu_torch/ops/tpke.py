@@ -32,6 +32,11 @@ the API and the batched-verify data flow are unchanged by that swap,
 which is the point of the BatchCrypto seam.  The dealer is trusted
 (standard for HBBFT test/bench deployments; DKG is a protocol-layer
 extension).
+
+Inside a traced lockstep epoch (``utils.trace.ACTIVE``, bound by
+``LockstepCluster.run_epoch``) the batched share ops and ``Tpke.encrypt``
+record spans: ``coin.issue``, ``coin.challenge``, ``coin.verify``,
+``tpke.kem`` and ``tpke.stream``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from cleisthenes_tpu_torch.ops.modmath import (
     host_pow,
     host_pow_batch,
 )
+from cleisthenes_tpu_torch.utils import trace as _trace
 
 
 def _hash_to_int(*parts: bytes) -> int:
@@ -87,11 +93,22 @@ def _cp_challenge_batch(
     Rows are grouped by context length (field offsets are constant
     within a group); a lockstep wave has a handful of context shapes,
     so this stays a couple of matrix fills."""
-    from cleisthenes_tpu_torch.ops.hashrows import ints_to_be_rows, sha256_rows
-
     m = len(contexts)
     if m == 0:
         return []
+    tr = _trace.ACTIVE
+    if tr is None:
+        return _cp_challenges(contexts, bases, his, ds, a1s, a2s, group)
+    t0 = tr.now()
+    out = _cp_challenges(contexts, bases, his, ds, a1s, a2s, group)
+    tr.complete("coin", "challenge", t0, rows=m)
+    return out
+
+
+def _cp_challenges(contexts, bases, his, ds, a1s, a2s, group) -> List[int]:
+    from cleisthenes_tpu_torch.ops.hashrows import ints_to_be_rows, sha256_rows
+
+    m = len(contexts)
     nb, q = group.nbytes, group.q
     if m < 64:
         # matrix assembly costs more than it saves on the live path's
@@ -337,6 +354,8 @@ def issue_shares_batch(
     """
     if not items:
         return []
+    tr = _trace.ACTIVE
+    t_issue = tr.now() if tr is not None else 0.0
     eng = get_engine_degraded(backend, group, device, mesh)
     q, g = group.q, group.g
     nbytes = group.nbytes
@@ -397,7 +416,7 @@ def issue_shares_batch(
         a2s,
         group,
     )
-    return [
+    shares = [
         DhShare(
             index=share.index,
             d=d,
@@ -406,6 +425,9 @@ def issue_shares_batch(
         )
         for (share, _b, _c, _vk), w, d, e in zip(items, ws, ds, es)
     ]
+    if tr is not None:
+        tr.complete("coin", "issue", t_issue, items=len(items))
+    return shares
 
 
 def combine_shares_batch(
@@ -599,6 +621,9 @@ def verify_and_combine_share_groups(
     returned list."""
     if not groups and not combine_only_sets:
         return [], [], []
+    tr = _trace.ACTIVE
+    t_verify = tr.now() if tr is not None else 0.0
+    n_shares = combines = memo_hits = 0
     by_gp: Dict[GroupParams, List[int]] = {}
     for gi, (pub, _base, _shares, _context) in enumerate(groups):
         by_gp.setdefault(pub.group, []).append(gi)
@@ -633,6 +658,7 @@ def verify_and_combine_share_groups(
             post-dispatch loop below routes the product to ``store``.
             One body for both the verified groups and the
             combine-only sets — they cannot drift."""
+            nonlocal memo_hits
             use = sorted(shares, key=lambda s: s.index)[:threshold]
             xs = [s.index for s in use]
             if len(set(xs)) != len(xs):
@@ -640,6 +666,7 @@ def verify_and_combine_share_groups(
             key = (gp, threshold, tuple((s.index, s.d) for s in use))
             hit = _COMBINE_MEMO.get(key)
             if hit is not None:
+                memo_hits += 1
                 store(hit)
                 return
             lams = lagrange_coeff_at_zero(xs, gp.q)
@@ -667,6 +694,8 @@ def verify_and_combine_share_groups(
                 )
         a = eng.dual_pow_batch(u1, e1, u2, e2)
         verdicts.update(_cp_verdicts(gp, groups, idx_list, a))
+        n_shares += n_dual // 2
+        combines += len(comb_spans)
         off = n_dual
         for store, key in comb_spans:
             acc = 1
@@ -677,6 +706,11 @@ def verify_and_combine_share_groups(
                 _COMBINE_MEMO.clear()
             _COMBINE_MEMO[key] = acc
             store(acc)
+    if tr is not None:
+        tr.complete(
+            "coin", "verify", t_verify, shares=n_shares, combines=combines,
+            memo_hits=memo_hits,
+        )
     return (
         [verdicts[gi] for gi in range(len(groups))],
         [values[gi] for gi in range(len(groups))],
@@ -1005,6 +1039,8 @@ class Tpke:
         gp = self.group
         # 8 excess bytes: unbiased KEM exponent (same rule as
         # _shamir_shares / issue_share)
+        tr = _trace.ACTIVE
+        t0 = tr.now() if tr is not None else 0.0
         r = (
             int.from_bytes(rng.token_bytes(gp.nbytes + 8), "big") % gp.q
         )
@@ -1012,10 +1048,15 @@ class Tpke:
             [gp.g, self.pub.master], [r, r], gp
         )  # g^r, h^r
         key = hashlib.sha256(b"kem" + _ibytes(kem, gp.nbytes)).digest()
+        if tr is not None:
+            t1 = tr.now()
+            tr.complete("tpke", "kem", t0, t1)
         c2 = _xor_bytes(msg, _keystream(key, len(msg)))
         tag = hmac.new(
             key, _ibytes(c1, gp.nbytes) + c2, hashlib.sha256
         ).digest()
+        if tr is not None:
+            tr.complete("tpke", "stream", t1, bytes=len(msg))
         return Ciphertext(c1=c1, c2=c2, tag=tag)
 
     def context(self, ct: Ciphertext) -> bytes:

@@ -52,6 +52,14 @@ The coin is the real threshold VUF: per (instance, round) all N
 shares are issued with CP proofs, f+1 verify, and the combined value
 decides the round exactly as protocol.bba does — so round counts are
 the true geometric distribution, not a stub.
+
+With ``Config.trace`` the cluster owns a flight recorder
+(``utils/trace.py``) and each epoch records its phases (``epoch.*``,
+the same boundaries as the ``*_s`` stats), its BBA waves and their
+parts (``bba.wave``, ``coin.*``, ``tpke.items``), the batched ops'
+spans (ops/tpke.py, ``ModEngine``) and the collector's full
+collections (``gc.full``); ``stats`` then also holds ``gc_s`` and
+``gc_collections``.
 """
 
 # staticcheck: allow-file[DET001] bench executor: time.perf_counter here
@@ -66,6 +74,7 @@ the true geometric distribution, not a stub.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -87,10 +96,44 @@ from cleisthenes_tpu_torch.protocol.keys import (
     serialize_txs,
     setup_keys,
 )
+from cleisthenes_tpu_torch.utils import trace
 
 # A round decides with probability 1/2 per instance; 64 rounds is
 # P ~ 2^-64 per instance — the same class of bound as bba.MAX_ROUNDS.
 MAX_COIN_ROUNDS = 64
+
+
+class _GcSpans:
+    """The collector inside one traced epoch, by a ``gc.callbacks``
+    hook: seconds and collections by generation, and a ``gc.full`` span
+    for each full collection.  The hook only appends to a list: a
+    collection can start while the recorder holds its lock, so the spans
+    enter the ring at ``flush``, after the epoch."""
+
+    def __init__(self, tr: trace.TraceRecorder) -> None:
+        self.tr = tr
+        self.seconds = 0.0
+        self.collections = [0, 0, 0]
+        self._full: List[tuple] = []  # (t0, t1, collected)
+        self._t0: Optional[float] = None
+
+    def callback(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = self.tr.now()
+            return
+        t0, self._t0 = self._t0, None
+        if t0 is None:  # began before the hook was in place
+            return
+        t1 = self.tr.now()
+        g = info["generation"]
+        self.collections[g] += 1
+        self.seconds += t1 - t0
+        if g == 2:
+            self._full.append((t0, t1, info["collected"]))
+
+    def flush(self) -> None:
+        for t0, t1, collected in self._full:
+            self.tr.complete("gc", "full", t0, t1, collected=collected)
 
 
 class LockstepCluster:
@@ -156,6 +199,8 @@ class LockstepCluster:
         # speculative issue mass buys two fewer sequential waves
         self.coin_block_initial = max(1, int(coin_block_initial))
         self.last_stats: Dict[str, float] = {}
+        # None unless config.trace: then every epoch records its spans
+        self.recorder = trace.maybe_recorder(cfg, "lockstep")
 
     # -- application surface ----------------------------------------------
 
@@ -230,6 +275,25 @@ class LockstepCluster:
     # -- one epoch ---------------------------------------------------------
 
     def run_epoch(self) -> Dict[str, float]:
+        tr = self.recorder
+        if tr is None:
+            return self._run_epoch(None)
+        # a traced epoch: the batched ops record into ``tr`` through the
+        # module binding, and the collector's time joins the stats
+        gcs = _GcSpans(tr)
+        prev, trace.ACTIVE = trace.ACTIVE, tr
+        gc.callbacks.append(gcs.callback)
+        try:
+            stats = self._run_epoch(tr)
+        finally:
+            gc.callbacks.remove(gcs.callback)
+            trace.ACTIVE = prev
+        gcs.flush()
+        stats["gc_s"] = gcs.seconds
+        stats["gc_collections"] = gcs.collections
+        return stats
+
+    def _run_epoch(self, tr: Optional[trace.TraceRecorder]) -> Dict[str, float]:
         cfg = self.config
         n, f, k = cfg.n, cfg.f, cfg.data_shards
         ids = self.ids
@@ -237,11 +301,21 @@ class LockstepCluster:
         backend = self.crypto.engine_backend
         device = self.crypto.device
         mesh = self.crypto.mesh
+        epoch = self.epoch
         stats: Dict[str, float] = {}
-        t_all = time.perf_counter()
+
+        def phase(name: str, t0: float) -> float:
+            """Close phase ``name`` begun at ``t0`` into ``stats`` (and
+            its ``epoch.<name>`` span); its end begins the next phase."""
+            t1 = time.perf_counter()
+            stats[name + "_s"] = t1 - t0
+            if tr is not None:
+                tr.complete("epoch", name, t0, t1, epoch=epoch)
+            return t1
+
+        t_all = t0 = time.perf_counter()
 
         # ---- propose: batch select + TPKE encrypt (N ciphertexts) ----
-        t0 = time.perf_counter()
         per_node = self.b // n
         my_txs: Dict[str, List[bytes]] = {}
         values: List[bytes] = []
@@ -251,10 +325,9 @@ class LockstepCluster:
             my_txs[nid] = txs
             ct = self.tpke.encrypt(serialize_txs(txs))
             values.append(serialize_ciphertext(ct, group))
-        stats["propose_s"] = time.perf_counter() - t0
+        t0 = phase("propose", t0)
 
         # ---- RBC: encode + forest + N^2 branch verify + decode ----
-        t0 = time.perf_counter()
         mats = [split_payload(v, k) for v in values]
         L = max(m.shape[1] for m in mats)
         data = np.zeros((n, k, L), dtype=np.uint8)
@@ -263,11 +336,10 @@ class LockstepCluster:
         full = self.crypto.erasure.encode_batch(data)  # (n, n, L)
         trees = self.crypto.merkle.build_batch(full)
         roots = [t.root for t in trees]
-        stats["rbc_encode_s"] = time.perf_counter() - t0
+        t0 = phase("rbc_encode", t0)
 
         # the N^2 distinct ECHO-phase proofs (docs/HONEYBADGER-EN.md:96),
         # one batched verify — the deduplicated receiver-side work
-        t0 = time.perf_counter()
         root_arr = np.repeat(
             np.frombuffer(b"".join(roots), dtype=np.uint8).reshape(n, 32),
             n,
@@ -289,10 +361,11 @@ class LockstepCluster:
         )
         if not bool(np.all(ok)):
             raise AssertionError("honest branch failed verification")
-        stats["rbc_verify_s"] = time.perf_counter() - t0
+        t0 = phase("rbc_verify", t0)
 
-        # delivery: fused decode + re-encode + root recheck over all N
-        t0 = time.perf_counter()
+        # delivery: fused decode + re-encode + root recheck over all N;
+        # each proposal is read back over its own shard width, not the
+        # epoch's padded L
         idx_arr = np.tile(np.arange(k), (n, 1))
         shard_arr = np.ascontiguousarray(full[:, :k, :])
         dec_data, dec_roots, _disp = self.crypto.decode_recheck_batch(
@@ -302,8 +375,8 @@ class LockstepCluster:
         for i in range(n):
             if dec_roots[i].tobytes() != roots[i]:
                 raise AssertionError("decode root recheck failed")
-            delivered.append(join_payload(dec_data[i]))
-        stats["rbc_decode_s"] = time.perf_counter() - t0
+            delivered.append(join_payload(dec_data[i][:, : mats[i].shape[1]]))
+        t0 = phase("rbc_decode", t0)
 
         # ---- BBA: every instance gets input 1 (all RBCs delivered);
         # vals == {1} each round, so the instance decides when its real
@@ -321,12 +394,13 @@ class LockstepCluster:
         # device waves falls from E[max rounds] ~ log2 N + 2 to
         # O(log log-rounds): 7 rounds of N=128 take 4 waves x 2
         # dispatches instead of 7 x 3.
-        t0 = time.perf_counter()
         coin_pub = self.coin.pub
         coin_vks = coin_pub.verification_keys
         rounds_used = 0
         coin_issues = 0
-        coin_verifies = 0
+        # shares issued for an (instance, round) the instance reached
+        # undecided: the rest is the doubling blocks' speculation
+        coin_useful = 0
         undecided = list(range(n))
         coin_bits: Dict[tuple, bool] = {}  # (inst, rnd) -> toss
 
@@ -335,6 +409,7 @@ class LockstepCluster:
         # coin — so its issue items ride BBA round 0's issue dispatch
         # and its combines ride round 0's fused verify/combine
         # dispatch: the whole wave costs ZERO extra device round-trips
+        t_items = tr.now() if tr is not None else 0.0
         tpke_pub = self.tpke.pub
         tpke_vks = tpke_pub.verification_keys
         cts = [deserialize_ciphertext(v, group) for v in delivered]
@@ -346,6 +421,8 @@ class LockstepCluster:
                 dec_items.append(
                     (sec, ct.c1, context, tpke_vks[sec.index - 1])
                 )
+        if tr is not None:
+            tr.complete("tpke", "items", t_items, items=len(dec_items))
         # riding round 0 requires one shared Lagrange threshold;
         # distinct thresholds (non-default configs) fall back to a
         # separate decrypt wave after BBA
@@ -356,8 +433,10 @@ class LockstepCluster:
             """Issue + fused verify/combine + toss for every
             (inst, rnd) pair — two dispatches total; fills coin_bits.
             With ``dec``, the decrypt wave's issues and combines ride
-            the same two dispatches."""
-            nonlocal coin_issues, coin_verifies
+            the same two dispatches.  Returns when the tosses began
+            (traced epochs; else 0.0)."""
+            nonlocal coin_issues
+            t_items = tr.now() if tr is not None else 0.0
             items = []
             metas = []
             for rnd in rnd_list:
@@ -373,6 +452,10 @@ class LockstepCluster:
                             (sec, base, context, coin_vks[sec.index - 1])
                         )
             n_coin = len(items)
+            if tr is not None:
+                tr.complete(
+                    "coin", "items", t_items, metas=len(metas), items=n_coin
+                )
             if dec:
                 items = items + dec_items
             shares = issue_shares_batch(
@@ -405,24 +488,28 @@ class LockstepCluster:
                 device=device,
                 mesh=mesh,
             )
-            coin_verifies += sum(len(v) for v in verdicts)
             if not all(all(v) for v in verdicts):
                 raise AssertionError("honest coin share failed CP check")
+            t_toss = tr.now() if tr is not None else 0.0
             for (inst, rnd, coin_id, *_rest), sub in zip(metas, subsets):
                 # pure memo hit on the fused combine: no dispatch
                 coin_bits[(inst, rnd)] = self.coin.toss(coin_id, sub)
+            return t_toss
 
         next_rnd = 0
         block = self.coin_block_initial
         coin_waves = 0
         while undecided and next_rnd < MAX_COIN_ROUNDS:
+            t_wave = tr.now() if tr is not None else 0.0
             rnds = range(
                 next_rnd, min(next_rnd + block, MAX_COIN_ROUNDS)
             )
-            run_rounds(rnds, undecided, dec=fuse_dec and next_rnd == 0)
-            coin_waves += 1
+            dec = fuse_dec and next_rnd == 0
+            instances = len(undecided)
+            t_toss = run_rounds(rnds, undecided, dec=dec)
             for rnd in rnds:
                 rounds_used = rnd + 1
+                coin_useful += n * len(undecided)
                 undecided = [
                     inst
                     for inst in undecided
@@ -430,6 +517,15 @@ class LockstepCluster:
                 ]
                 if not undecided:
                     break
+            if tr is not None:
+                tr.complete(
+                    "coin", "toss", t_toss, tosses=len(rnds) * instances
+                )
+                tr.complete(
+                    "bba", "wave", t_wave, epoch=epoch, wave=coin_waves,
+                    rounds=len(rnds), instances=instances, dec=dec,
+                )
+            coin_waves += 1
             next_rnd = rnds.stop
             if self.coin_block_doubling:
                 block = block * 2 if next_rnd > 1 else 1
@@ -437,19 +533,13 @@ class LockstepCluster:
             raise AssertionError(
                 f"instances undecided after {MAX_COIN_ROUNDS} rounds"
             )
-        stats["bba_s"] = time.perf_counter() - t0
+        t0 = phase("bba", t0)
         stats["bba_rounds"] = rounds_used
         stats["coin_waves"] = coin_waves
         stats["coin_issues"] = coin_issues
-        stats["coin_verifies"] = coin_verifies
-        # attribution note: with dec_fused=1 the decrypt wave's device
-        # work is timed inside bba_s (it rides round 0's dispatches)
-        # and decrypt_s measures only the memo-hit tail — not
-        # comparable with pre-fusion artifacts' decrypt_s
-        stats["dec_fused"] = float(fuse_dec)
+        stats["coin_useful"] = coin_useful
 
         # ---- decrypt tail: combines are memo hits from round 0 ----
-        t0 = time.perf_counter()
         if not fuse_dec:
             dec_shares = issue_shares_batch(
                 dec_items, group=group, backend=backend, device=device, mesh=mesh
@@ -473,12 +563,11 @@ class LockstepCluster:
         for i, (ct, sub) in enumerate(zip(cts, dec_subsets)):
             plain = self.tpke.combine(ct, sub)  # memo hit + tag check
             decrypted[ids[i]] = deserialize_txs(plain)
-        stats["decrypt_s"] = time.perf_counter() - t0
+        t0 = phase("decrypt", t0)
         stats["dec_issues"] = len(dec_items)
 
         # ---- commit: the reference dedup/ordering rule ----
         # (protocol.honeybadger._maybe_commit)
-        t0 = time.perf_counter()
         seen: set = set()
         contributions: Dict[str, List[bytes]] = {}
         for proposer in sorted(decrypted):
@@ -490,9 +579,9 @@ class LockstepCluster:
             if mine:
                 contributions[proposer] = mine
         self.committed_batches.append(Batch(contributions=contributions))
-        stats["commit_s"] = time.perf_counter() - t0
+        t0 = phase("commit", t0)
 
-        stats["epoch_s"] = time.perf_counter() - t_all
+        stats["epoch_s"] = t0 - t_all
         self.epoch += 1
         self.last_stats = stats
         return stats

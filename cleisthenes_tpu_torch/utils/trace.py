@@ -82,10 +82,22 @@ CATEGORIES = frozenset(
         # instants with the verdict, and one "stream" span per
         # subscriber batch delivery — the client-visible latency
         # timeline the ingress_load bench section measures against
+        "engine",  # the modexp engine's calls inside a lockstep epoch:
+        # int->bytes packing, the device leg, bytes->int unpacking
+        "gc",  # full collections of the garbage collector inside a
+        # traced lockstep epoch
     )
 )
 
 DEFAULT_CAP = 1 << 16
+
+# The recorder of the traced lockstep epoch now running, else None.
+# ``LockstepCluster.run_epoch`` binds it for the epoch and resets it in a
+# ``finally``; ops/tpke.py and ``ModEngine`` read it at their call sites,
+# so the batched ops record spans without a recorder argument.  The
+# asynchronous plane never binds it.  Read it as ``trace.ACTIVE``: a
+# name imported from here would keep the value it had at import.
+ACTIVE: Optional["TraceRecorder"] = None
 
 Event = Tuple[int, float, Optional[float], str, str, dict]
 
@@ -136,11 +148,16 @@ class TraceRecorder:
         """A zero-duration marker (quorum crossing, commit, adopt)."""
         self._record(cat, name, self.now(), None, args)
 
-    def complete(self, cat: str, name: str, t0: float, **args) -> None:
+    def complete(
+        self, cat: str, name: str, t0: float, t1: Optional[float] = None, **args
+    ) -> None:
         """A span recorded at its END: ``t0`` came from ``now()``
         before the work (the begin/end pair in one call — no nesting
-        bookkeeping on the hot path)."""
-        t1 = self.now()
+        bookkeeping on the hot path).  ``t1`` is the end when the
+        caller has already read it (a phase boundary it also keeps in
+        its stats); else the end is read now."""
+        if t1 is None:
+            t1 = self.now()
         self._record(cat, name, t0, t1 - t0, args)
 
     @contextlib.contextmanager
