@@ -60,6 +60,11 @@ parts (``bba.wave``, ``coin.*``, ``tpke.items``), the batched ops'
 spans (ops/tpke.py, ``ModEngine``) and the collector's full
 collections (``gc.full``); ``stats`` then also holds ``gc_s`` and
 ``gc_collections``.
+
+An epoch holds the cyclic collector's automatic runs and ends with one
+young collection (``gc_paused``, ``gc_boundary_s`` in every epoch's
+``stats``); the lockstep drivers are single-threaded, so the hold
+touches no other work.
 """
 
 # staticcheck: allow-file[DET001] bench executor: time.perf_counter here
@@ -275,25 +280,41 @@ class LockstepCluster:
     # -- one epoch ---------------------------------------------------------
 
     def run_epoch(self) -> Dict[str, float]:
-        tr = self.recorder
-        if tr is None:
-            return self._run_epoch(None)
-        # a traced epoch: the batched ops record into ``tr`` through the
-        # module binding, and the collector's time joins the stats
-        gcs = _GcSpans(tr)
-        prev, trace.ACTIVE = trace.ACTIVE, tr
-        gc.callbacks.append(gcs.callback)
+        # The collector's automatic runs are held for the epoch.  Its
+        # containers (share objects, item lists, int columns) live until
+        # it ends, so a collection inside it frees nothing: it promotes
+        # them, and the promotions bring on full collections of the whole
+        # heap.  ``_run_epoch`` ends with one young collection instead,
+        # which reclaims every cycle the epoch left, since nothing it
+        # allocated was promoted.  A caller that holds the collector off
+        # itself gets neither.
+        held = gc.isenabled()
+        gc.disable()
         try:
-            stats = self._run_epoch(tr)
+            tr = self.recorder
+            if tr is None:
+                return self._run_epoch(None, held)
+            # a traced epoch: the batched ops record into ``tr`` through
+            # the module binding, and the collector's time joins the stats
+            gcs = _GcSpans(tr)
+            prev, trace.ACTIVE = trace.ACTIVE, tr
+            gc.callbacks.append(gcs.callback)
+            try:
+                stats = self._run_epoch(tr, held)
+            finally:
+                gc.callbacks.remove(gcs.callback)
+                trace.ACTIVE = prev
+            gcs.flush()
+            stats["gc_s"] = gcs.seconds
+            stats["gc_collections"] = gcs.collections
+            return stats
         finally:
-            gc.callbacks.remove(gcs.callback)
-            trace.ACTIVE = prev
-        gcs.flush()
-        stats["gc_s"] = gcs.seconds
-        stats["gc_collections"] = gcs.collections
-        return stats
+            if held:
+                gc.enable()
 
-    def _run_epoch(self, tr: Optional[trace.TraceRecorder]) -> Dict[str, float]:
+    def _run_epoch(
+        self, tr: Optional[trace.TraceRecorder], held: bool
+    ) -> Dict[str, float]:
         cfg = self.config
         n, f, k = cfg.n, cfg.f, cfg.data_shards
         ids = self.ids
@@ -584,6 +605,14 @@ class LockstepCluster:
         stats["epoch_s"] = t0 - t_all
         self.epoch += 1
         self.last_stats = stats
+
+        # ---- the collector: the one young collection of the epoch ----
+        stats["gc_paused"] = int(held)
+        stats["gc_boundary_s"] = 0.0
+        if held:
+            t0 = time.perf_counter()
+            gc.collect(1)
+            stats["gc_boundary_s"] = time.perf_counter() - t0
         return stats
 
     def run_epochs(self, max_epochs: int = 50) -> int:

@@ -100,7 +100,8 @@ def test_untraced_epoch_has_no_recorder_binding_or_hook(backend):
     assert seen and all(a is None for a in seen)
     assert trace.ACTIVE is None
     assert gc.callbacks == hooks
-    assert not any(k.startswith("gc_") for k in stats)
+    assert "gc_s" not in stats and "gc_collections" not in stats
+    assert stats["gc_paused"] == int(gc.isenabled())
     assert "coin_verifies" not in stats and "dec_fused" not in stats
     assert 0 < stats["coin_useful"] <= stats["coin_issues"]
 
@@ -186,6 +187,8 @@ def test_span_args_carry_the_epoch_counts(traced):
         assert len(args("tpke.kem")) == len(args("tpke.stream")) == n
         assert 0 < stats["coin_useful"] <= stats["coin_issues"]
         assert stats["gc_s"] >= 0.0 and len(stats["gc_collections"]) == 3
+        # the epoch's closing young collection is the collector's hook's too
+        assert stats["gc_paused"] == 1 and stats["gc_collections"][1] >= 1
         if c.crypto.engine_backend == "cuda":
             packs = args("engine.pack")
             assert packs and len(packs) == len(args("engine.device")) == len(args("engine.unpack"))
