@@ -6,5 +6,7 @@ cells are the ``workloads`` of ``BENCHMARK.json`` at the repository's
 root.  ``run.py`` runs one cell once; ``control.py`` runs the planted
 faults; ``reference/`` is the plain reference that decides ``correct``;
 ``yardstick.py`` and ``trace.py`` are the frozen roofline and device
-split.  Nothing here imports JAX or the JAX package.
+split.  A configuration may name any group the port's ``"cuda"`` engine
+hosts: the 256-bit kernels' (K7-K9) or a wide family's (K12, 257 to
+2,112 bits).  Nothing here imports JAX or the JAX package.
 """

@@ -8,7 +8,9 @@ epoch's shards, Merkle roots and decoded proposals (RBC), every coin toss
 replace attributes of the cluster's own service objects and engine; the
 program's modules are not touched.  With tracing on, each wrapped call is
 also a ``torch.profiler`` span, and the modexp engine's calls keep their
-inputs for the roofline.
+inputs for the roofline: the dual pow's rows, and on an engine of a wide
+family (K12) also the rows of its pows, grouped and flat, as the calls
+passed them.
 
 Shards, roots and decoded proposals are kept for ``rbc_epochs`` epochs
 of the window, drawn from the seed by reservoir sampling, because
@@ -30,10 +32,11 @@ def _no_span(_name):
 
 
 class Recorder:
-    def __init__(self, seed: int, rbc_epochs: int, trace: bool) -> None:
+    def __init__(self, seed: int, rbc_epochs: int, trace: bool, wide: bool = False) -> None:
         self.rng = random.Random(seed * 7919 + 17)
         self.rbc_epochs = rbc_epochs
         self.trace = trace
+        self.wide = wide  # the engine runs a wide family (K12)
         self.epoch = -1
         self.sampling = False  # only window and drain epochs are sampled
         self.window = False  # inside the timed window
@@ -44,6 +47,8 @@ class Recorder:
         self.cts: Dict[int, list] = {}
         self.verify_shapes: List[tuple] = []
         self.dual_rows: List[tuple] = []
+        self.pow_groups: List[list] = []  # a wide engine's grouped calls
+        self.pow_rows: List[tuple] = []  # a wide engine's flat calls
         self._in_decode = False
         if trace:
             from torch.profiler import record_function
@@ -172,15 +177,28 @@ class Recorder:
 
         def grouped_w(groups):
             with rec.span("engine.pow_grouped"):
-                return grouped(groups)
+                out = grouped(groups)
+            if rec.wide and rec.window:
+                rec.pow_groups.append(groups)
+            return out
 
         def pow_w(bases, exps):
             with rec.span("engine.pow"):
-                return pow_batch(bases, exps)
+                out = pow_batch(bases, exps)
+            if rec.wide and rec.window:
+                rec.pow_rows.append((bases, exps))
+            return out
 
         engine.dual_pow_batch = dual_w
         engine.pow_batch_grouped = grouped_w
         engine.pow_batch = pow_w
+
+    def wide_pow_calls(self) -> List[tuple]:
+        """(bases, exponents) of each of the window's wide pow calls, a
+        grouped call flattened as the engine flattens it."""
+        flat = [([b for b, exps in groups for _ in exps], [e for _, exps in groups for e in exps])
+                for groups in self.pow_groups]
+        return [(b, e) for b, e in flat + self.pow_rows if e]
 
     @staticmethod
     def uninstall(engine) -> None:

@@ -22,12 +22,17 @@ Every number below counts disagreements and has the limit 0:
   epoch never tossed.
 - ``plaintexts``: decrypted proposals unlike the reference's decryption
   of the same ciphertext, or unlike the proposer's transaction list.
+
+Over a group wider than 256 bits the reference's powers (the dealing, a
+coin a tossed id, a decryption key a ciphertext) are worked out first, over
+worker processes, one a CPU this process may use (``workers_for``).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,6 +80,12 @@ def _key_mismatches(dealt: threshold.Dealt, port, ids) -> int:
     return bad
 
 
+def workers_for(grp: threshold.Group) -> int:
+    """Processes for the reference's powers: one a CPU for a group wider
+    than 256 bits, else this one alone."""
+    return len(os.sched_getaffinity(0)) if grp.p.bit_length() > 256 else 1
+
+
 def compare(ev: Evidence) -> Tuple[Dict[str, int], int]:
     """The disagreement counts, and how many transactions were due."""
     out = dict.fromkeys(NAMES, 0)
@@ -82,8 +93,9 @@ def compare(ev: Evidence) -> Tuple[Dict[str, int], int]:
     n, f = ev.n, ev.f
     k = n - 2 * f
     grp = ev.group
-    tpke = threshold.deal(grp, n, f + 1, ev.key_seed)
-    coin = threshold.deal(grp, n, f + 1, ev.key_seed + 1)
+    workers = workers_for(grp)
+    tpke = threshold.deal(grp, n, f + 1, ev.key_seed, workers)
+    coin = threshold.deal(grp, n, f + 1, ev.key_seed + 1, workers)
     out["keys"] = _key_mismatches(tpke, ev.port_keys["tpke"], ids) + _key_mismatches(
         coin, ev.port_keys["coin"], ids
     )
@@ -112,10 +124,18 @@ def compare(ev: Evidence) -> Tuple[Dict[str, int], int]:
 
     # the coin and the rounds it decides
     cache: Dict[bytes, bool] = {}
+    sigma: Dict[bytes, int] = {}
+    shared: Dict[int, int] = {}
+    if workers > 1:
+        cids = sorted({cid for tossed in ev.tosses.values() for cid in tossed})
+        sigma = dict(zip(cids, threshold.pows(
+            [(threshold.coin_base(grp, cid), coin.secret) for cid in cids], grp.p, workers)))
+        c1s = sorted({row[0] for pairs in ev.plain.values() for row in pairs})
+        shared = dict(zip(c1s, threshold.pows([(c1, tpke.secret) for c1 in c1s], grp.p, workers)))
 
     def toss(cid: bytes) -> bool:
         if cid not in cache:
-            cache[cid] = threshold.coin_toss(grp, coin.secret, cid)
+            cache[cid] = threshold.coin_toss(grp, coin.secret, cid, sigma.get(cid))
         return cache[cid]
 
     for e, tossed in ev.tosses.items():
@@ -139,7 +159,7 @@ def compare(ev: Evidence) -> Tuple[Dict[str, int], int]:
         out["plaintexts"] += abs(len(pairs) - n)
         for nid, (c1, c2, tag, pt) in zip(ids, pairs):
             try:
-                ref = threshold.decrypt(grp, tpke.secret, c1, c2, tag)
+                ref = threshold.decrypt(grp, tpke.secret, c1, c2, tag, shared.get(c1))
             except ValueError:
                 out["plaintexts"] += 1
                 continue

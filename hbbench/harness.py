@@ -89,6 +89,8 @@ class RunData:
     profile: Optional[dict] = None
     dual_pow_bound_ms: Optional[float] = None
     merkle_verify_bound_ms: Optional[float] = None
+    wide_pow_bound_ms: Optional[float] = None
+    wide_dual_pow_bound_ms: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -147,8 +149,9 @@ def run(config: dict, mix: dict, seed: int, seconds: float, trace: bool, *,
     if cluster.config.f != f:
         raise ValueError(f"config f={f} but the port's Config gives f={cluster.config.f}")
     engine = get_engine(backend, group, device)
+    wide_vb = wide_family(backend, group)
     pool = traffic.TxPool(seed, int(config["tx_bytes"]))
-    rec = Recorder(seed, int(mix.get("rbc_check_epochs", 2)), trace)
+    rec = Recorder(seed, int(mix.get("rbc_check_epochs", 2)), trace, wide=wide_vb is not None)
     for fault in faults:
         fault(cluster)
     rec.install(cluster, engine)
@@ -311,7 +314,7 @@ def run(config: dict, mix: dict, seed: int, seconds: float, trace: bool, *,
     if lags:
         info["generator_late_ms"] = {"p50": float(np.percentile(lags, 50)) * 1e3,
                                      "max": float(max(lags)) * 1e3}
-    dual_rows, verify_shapes = rec.dual_rows, rec.verify_shapes
+    calls = {"dual": rec.dual_rows, "verify": rec.verify_shapes, "pows": rec.wide_pow_calls()}
     split = None
     if prof is not None:
         from hbbench.trace import read_profile
@@ -328,15 +331,46 @@ def run(config: dict, mix: dict, seed: int, seconds: float, trace: bool, *,
     data = RunData(setup_s=setup_s, window_s=window_s, epochs=epochs,
                    committed_in_window=in_window, latencies_ms=latencies, profile=split)
     if split is not None:
-        from hbbench.yardstick import dual_pow_bound, merkle_verify_bound
-
-        if dual_rows:
-            data.dual_pow_bound_ms = sum(dual_pow_bound(*rows)[0] for rows in dual_rows)
-        if verify_shapes:
-            data.merkle_verify_bound_ms = sum(merkle_verify_bound(*s)[0] for s in verify_shapes)
+        t_bound = time.perf_counter()
+        for key, ms in window_bounds(wide_vb, **calls).items():
+            setattr(data, key, ms)
+        info["bound_s"] = time.perf_counter() - t_bound
     return Outcome(run=data, checks=checks, attempted=due_count, failed=failed, info=info,
                    memory_peak_bytes=memory_peak)
 
+
+def wide_family(backend: str, group) -> Optional[int]:
+    """The row bytes of the wide family (K12) whose kernels a ``backend``
+    engine runs for ``group``, or None where the 256-bit kernels (K7-K9)
+    or the host serve it."""
+    from cleisthenes_tpu_torch.ops.modexp_cuda import WIDE_WORDS
+    from cleisthenes_tpu_torch.ops.modmath import layout_for_group
+
+    vb = layout_for_group(group) if backend == "cuda" else None
+    return vb if vb in WIDE_WORDS else None
+
+
+def window_bounds(wide_vb: Optional[int], dual: Sequence[tuple], verify: Sequence[tuple],
+                  pows: Sequence[tuple] = ()) -> Dict[str, float]:
+    """The frozen bounds of the window's recorded calls, in ms, by
+    ``RunData`` field: K6's of each verify shape; of each dual pow call K8's
+    on a 256-bit engine (``wide_vb`` None), else K12's of the ``wide_vb``-
+    byte family, with K12's of each pow call.  A kind of call the window
+    did not make has no bound."""
+    from hbbench import yardstick
+
+    out = {}
+    if verify:
+        out["merkle_verify_bound_ms"] = sum(yardstick.merkle_verify_bound(*s)[0] for s in verify)
+    if wide_vb is None:
+        if dual:
+            out["dual_pow_bound_ms"] = sum(yardstick.dual_pow_bound(*rows)[0] for rows in dual)
+        return out
+    if dual:
+        out["wide_dual_pow_bound_ms"] = sum(yardstick.wide_dual_pow_bound(*rows, wide_vb)[0] for rows in dual)
+    if pows:
+        out["wide_pow_bound_ms"] = sum(yardstick.wide_pow_bound(*rows, wide_vb)[0] for rows in pows)
+    return out
 
 
 def _launches() -> Dict[str, int]:

@@ -10,6 +10,10 @@ roster's seed, the coin's key the seed plus one.  The reference holds the
 dealt secrets, so it works out a coin as H2G(id)^s and a decryption key as
 c1^s without combining shares: the value every honest set of f + 1 shares
 combines to.
+
+A group wider than 256 bits makes each of those powers costly in Python
+(about 30 ms at 2,048 bits), so ``pows`` can spread a list of them over
+worker processes: they stay Python integers, worked out by ``pow``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,10 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import hmac
-from typing import Tuple
+import pickle
+import subprocess
+import sys
+from typing import Iterable, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +55,33 @@ class Dealt:
     verification_keys: Tuple[int, ...]
 
 
-def deal(grp: Group, n: int, threshold: int, seed: int) -> Dealt:
+# a worker: pickled (b, e, p) jobs on stdin, their powers pickled on stdout
+_WORKER = "import pickle, sys; pickle.dump([pow(*j) for j in pickle.load(sys.stdin.buffer)], sys.stdout.buffer)"
+
+
+def pows(pairs: Iterable[Tuple[int, int]], p: int, workers: int = 1) -> List[int]:
+    """[b^e mod p] for (b, e) in ``pairs``; over ``workers`` Python
+    processes of their own when more than one, each given an equal run of
+    the pairs, all waited for."""
+    jobs = [(b, e, p) for b, e in pairs]
+    if workers <= 1 or len(jobs) < 2:
+        return [pow(*job) for job in jobs]
+    step = -(-len(jobs) // workers)
+    procs = [subprocess.Popen([sys.executable, "-I", "-c", _WORKER], stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE) for _ in range(0, len(jobs), step)]
+    for i, proc in enumerate(procs):  # each reads all its input before it writes
+        proc.stdin.write(pickle.dumps(jobs[i * step : (i + 1) * step]))
+        proc.stdin.close()
+    out: List[int] = []
+    for proc in procs:
+        out += pickle.load(proc.stdout)
+        proc.stdout.close()
+        if proc.wait() != 0:
+            raise RuntimeError(f"a power worker exited with {proc.returncode}")
+    return out
+
+
+def deal(grp: Group, n: int, threshold: int, seed: int, workers: int = 1) -> Dealt:
     counter = 0
 
     def draw(width: int) -> int:
@@ -68,11 +101,12 @@ def deal(grp: Group, n: int, threshold: int, seed: int) -> Dealt:
         for c in reversed(coeffs):
             acc = (acc * x + c) % grp.q
         shares.append(acc)
+    public = pows([(grp.g, secret)] + [(grp.g, s) for s in shares], grp.p, workers)
     return Dealt(
         secret=secret,
         shares=tuple(shares),
-        master=pow(grp.g, secret, grp.p),
-        verification_keys=tuple(pow(grp.g, s, grp.p) for s in shares),
+        master=public[0],
+        verification_keys=tuple(public[1:]),
     )
 
 
@@ -90,10 +124,15 @@ def coin_id(epoch: int, proposer: str, rnd: int) -> bytes:
     return b"%d|%s|%d" % (epoch, proposer.encode(), rnd)
 
 
-def coin_toss(grp: Group, coin_secret: int, cid: bytes) -> bool:
+def coin_base(grp: Group, cid: bytes) -> int:
+    return hash_to_group(grp, b"coin|" + cid)
+
+
+def coin_toss(grp: Group, coin_secret: int, cid: bytes, sigma: Optional[int] = None) -> bool:
     """The coin of ``cid``: the low bit of SHA-256("coinval|" || id || x^s),
-    x = H2G("coin|" || id)."""
-    sigma = pow(hash_to_group(grp, b"coin|" + cid), coin_secret, grp.p)
+    x = H2G("coin|" || id); ``sigma``, when given, is x^s."""
+    if sigma is None:
+        sigma = pow(coin_base(grp, cid), coin_secret, grp.p)
     value = hashlib.sha256(b"coinval|" + cid + grp.element(sigma)).digest()
     return bool(value[-1] & 1)
 
@@ -106,11 +145,15 @@ def keystream(key: bytes, length: int) -> bytes:
     return b"".join(blocks)[:length]
 
 
-def decrypt(grp: Group, secret: int, c1: int, c2: bytes, tag: bytes) -> bytes:
+def decrypt(grp: Group, secret: int, c1: int, c2: bytes, tag: bytes,
+            shared: Optional[int] = None) -> bytes:
     """Hashed-ElGamal decryption with the dealt secret: key =
-    SHA-256("kem" || c1^s); the tag is HMAC-SHA-256(key, c1 || c2).  Raises
-    ValueError when the tag does not check."""
-    key = hashlib.sha256(b"kem" + grp.element(pow(c1, secret, grp.p))).digest()
+    SHA-256("kem" || c1^s); the tag is HMAC-SHA-256(key, c1 || c2).
+    ``shared``, when given, is c1^s.  Raises ValueError when the tag does
+    not check."""
+    if shared is None:
+        shared = pow(c1, secret, grp.p)
+    key = hashlib.sha256(b"kem" + grp.element(shared)).digest()
     want = hmac.new(key, grp.element(c1) + c2, hashlib.sha256).digest()
     if not hmac.compare_digest(want, tag):
         raise ValueError("ciphertext tag does not check under the dealt key")

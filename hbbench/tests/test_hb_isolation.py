@@ -78,3 +78,31 @@ def test_the_control_on_the_card(cuda_card):
                          capture_output=True, text=True, timeout=900, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert json.loads(out.stdout.strip().splitlines()[-1])["correct"] is False
+
+
+# RFC 3526's 2048-bit MODP group 14: K12's 264-byte family
+MODP14 = (
+    "FFFFFFFFFFFFFFFFC90FDAA22168C234C4C6628B80DC1CD129024E088A67CC74"
+    "020BBEA63B139B22514A08798E3404DDEF9519B3CD3A431B302B0A6DF25F1437"
+    "4FE1356D6D51C245E485B576625E7EC6F44C42E9A637ED6B0BFF5CB6F406B7ED"
+    "EE386BFB5A899FA5AE9F24117C4B1FE649286651ECE45B3DC2007CB8A163BF05"
+    "98DA48361C55D39A69163FA8FD24CF5F83655D23DCA3AD961C62F356208552BB"
+    "9ED529077096966D670C354E4ABC9804F1746C08CA18217C32905E462E36CE3B"
+    "E39E772C180E86039B2783A2EC07A28FB5C55DF06F4C52C9DE2BCBF695581718"
+    "3995497CEA956AE515D2261898FA051015728E5A8AACAA68FFFFFFFFFFFFFFFF"
+)
+
+
+def test_a_traced_run_over_modp14_bounds_both_wide_kernels(cuda_card):
+    """K12 on the card: a traced window at N=4 over the 2048-bit group
+    fills both wide bounds, and every check reads 0."""
+    from hbbench import harness
+
+    cfg = {"n": 4, "f": 1, "batch_size": 64, "key_seed": 77, "tx_bytes": 250,
+           "group": {"bits": 2048, "p": MODP14, "g": 4}}
+    out = harness.run(cfg, harness.load_json("traffic", "backlog"), 2147483999, 0.3, True)
+    assert not any(out.checks.values()), out.checks
+    assert out.run.wide_pow_bound_ms > 0 and out.run.wide_dual_pow_bound_ms > 0
+    assert out.run.dual_pow_bound_ms is None
+    for name in ("wide_pow_roofline", "wide_dual_pow_roofline"):
+        assert 0 < harness.load_metric(name).read(out.run) < 100

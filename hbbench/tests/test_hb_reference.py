@@ -109,3 +109,16 @@ def test_one_flipped_coin_or_key_fails(evidence):
     master, vks, shares = evidence.port_keys["coin"]
     evidence.port_keys["coin"] = (master, vks, dict(shares, node000=shares["node000"] + 1))
     assert check.compare(evidence)[0]["keys"] == 1
+
+
+def test_a_wide_group_spreads_its_powers_over_workers():
+    import random
+
+    from hbbench.reference import threshold
+
+    p384 = int(GROUP384["p"], 16)
+    r = random.Random(3)
+    pairs = [(r.randrange(p384), r.randrange(p384)) for _ in range(201)]
+    assert check.workers_for(threshold.Group(p=p384, g=4)) >= 1
+    assert check.workers_for(threshold.Group(p=(1 << 255) - 19, g=4)) == 1
+    assert threshold.pows(pairs, p384, 4) == [pow(b, e, p384) for b, e in pairs]

@@ -18,6 +18,19 @@ issued.  A modular exponentiation is bounded by the fewest Montgomery
 products any fixed-window method needs for its exponents (``least_dual``
 for u1^e1 u2^e2), each input byte read once and each output byte written
 once.
+
+K12 (csrc/modexp_wide.cu) takes the repository's bound of a wide product,
+``WIDE_BOUND_OPS`` of cleisthenes_tpu_torch/csrc/sass_ops.py: the fewer
+of the 32-bit ALU instructions that the first design's one-thread CIOS
+product (1,013 / 4,068 / 26,987 at 12 / 25 / 66 words) and the shipped
+plans' team product (950 / 11,680 / 65,536, all lanes of the team) were
+read to need in their SASS, 950 / 4,068 / 26,987.  The one-thread
+product's instructions were never split by pipe, so every wide count is
+held at the issue rate, which no split over the INT32 and FMA pipes
+(each at half that rate) can beat.  A row's products are ``least_pow``
+or ``least_dual`` of its exponents at the family's width; each row reads
+its bases and exponents and writes one value, all of the family's
+width; its bases arrive reduced, so none folds.
 """
 
 from __future__ import annotations
@@ -32,6 +45,10 @@ FMA_INT_OPS_PER_S = 132 * 64 * 1.98e9
 SHA_BLOCK_OPS = (1265, 1383)  # (INT32 pipe, issued) a compression
 SHA_NODE_OPS = (2421, 2675)  # (INT32 pipe, issued) a 65-byte Merkle node
 MONT_PIPE_OPS = (212, 202, 431)  # (INT32 pipe, FMA pipe, issued) a product
+# K12: a wide family's row bytes -> its 32-bit words, and the issued ALU
+# instructions of one Montgomery product by words (sass_ops.WIDE_BOUND_OPS)
+WIDE_WORDS = {48: 12, 99: 25, 264: 66}
+WIDE_BOUND_OPS = {12: 950, 25: 4068, 66: 26987}
 
 
 def blocks(msg_len: int) -> int:
@@ -183,3 +200,31 @@ def dual_pow_bound(u1, e1, u2, e2):
         products += dual_products(b33(u1[sl]), b32(e1[sl]), b33(u2[sl]), b32(e2[sl]))
     ms, by = mont_bound(len(u1) * (3 * 33 + 2 * 32), products)
     return ms, by, products
+
+
+def _be_rows(xs, nb: int):
+    """(B,) Python ints -> (B, nb) big-endian bytes."""
+    return np.frombuffer(b"".join(x.to_bytes(nb, "big") for x in xs), np.uint8).reshape(-1, nb)
+
+
+def _wide_bound(nbytes: int, products: int, vb: int):
+    return bound(nbytes, 0, products * WIDE_BOUND_OPS[WIDE_WORDS[vb]])
+
+
+def wide_pow_bound(bases, exps, vb: int):
+    """K12 ``wide_pow_kernel`` of the ``vb``-byte family on Python-integer
+    rows: (bound_ms, bound_by, products)."""
+    products = 0
+    for lo in range(0, len(exps), 1 << 13):  # bounded memory
+        products += int(least_pow(_be_rows(exps[lo : lo + (1 << 13)], vb)).sum())
+    return (*_wide_bound(len(bases) * 3 * vb, products, vb), products)
+
+
+def wide_dual_pow_bound(u1, e1, u2, e2, vb: int):
+    """K12 ``wide_dual_pow_kernel`` of the ``vb``-byte family on
+    Python-integer rows: (bound_ms, bound_by, products)."""
+    products = 0
+    for lo in range(0, len(u1), 1 << 13):  # bounded memory
+        sl = slice(lo, lo + (1 << 13))
+        products += int(least_dual(_be_rows(e1[sl], vb), _be_rows(e2[sl], vb)).sum())
+    return (*_wide_bound(len(u1) * 5 * vb, products, vb), products)
